@@ -1,0 +1,108 @@
+"""FastConformer encoder of the PyTorch port against the JAX encoder.
+
+Both encoders run the same parameters (the JAX tree handed over through
+`utils.weights.from_jax_params`) on the same numpy-seeded mel batch with
+ragged lengths, in float32. On the CPU the JAX encoder takes its einsum
+attention path and the port its plain attention; the two agree on valid rows
+and both zero the padded rows. Configurations: the trained `test-tiny` npz
+(Dh 16) and a small Dh=128 encoder, the head width of v3's kernel branch.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+from flax.traverse_util import unflatten_dict
+
+from fluidaudio_tpu.models import conformer as jax_conformer
+from fluidaudio_tpu.train.fixtures import trained_assets_dir
+from fluidaudio_tpu_torch.models import conformer as port
+from fluidaudio_tpu_torch.ops.attention import relpos_attention
+from fluidaudio_tpu_torch.utils.weights import from_jax_params, load_state
+
+TINY = dict(d_model=64, n_layers=2, n_heads=4, subsampling_channels=32, dtype="float32")
+DH128 = dict(d_model=256, n_layers=2, n_heads=2, subsampling_channels=32, dtype="float32")
+
+
+def _trained_tiny_params():
+    with np.load(trained_assets_dir() / "asr" / "encoder.npz") as data:
+        return unflatten_dict({tuple(k.split("/")): data[k] for k in data.files})
+
+
+def _perturbed_init(cfg_kwargs, mel, lengths):
+    """JAX init with every leaf perturbed, so zero-initialised biases,
+    pos_bias_u/v and the folded BN are exercised too."""
+    enc = jax_conformer.ConformerEncoder(jax_conformer.ConformerConfig(**cfg_kwargs))
+    params = enc.init(jax.random.PRNGKey(0), jnp.asarray(mel), jnp.asarray(lengths))
+    rs = np.random.RandomState(1)
+    return jax.tree_util.tree_map(
+        lambda x: np.asarray(x) + 0.05 * rs.randn(*x.shape).astype(np.float32), params)
+
+
+def _mel(B, T, seed):
+    return np.random.RandomState(seed).randn(B, 128, T).astype(np.float32)
+
+
+def _both(cfg_kwargs, params, mel, lengths):
+    want, want_len = jax_conformer.ConformerEncoder(
+        jax_conformer.ConformerConfig(**cfg_kwargs)
+    ).apply(params, jnp.asarray(mel), jnp.asarray(lengths))
+    enc = port.ConformerEncoder(port.ConformerConfig(**cfg_kwargs)).eval()
+    load_state(enc, from_jax_params(params))
+    got, got_len = enc(torch.from_numpy(mel), torch.from_numpy(lengths))
+    return np.asarray(want), np.asarray(want_len), got.numpy(), got_len.numpy()
+
+
+@pytest.mark.parametrize("name", ["trained_tiny", "dh128"])
+def test_encoder_matches_jax(name):
+    """f32 end to end through subsampling + 2 blocks: 1e-3 absolute on
+    activations of order 1 covers summation-order differences (observed
+    below 1e-5) while any layout or index error is off by O(1)."""
+    mel = _mel(3, 161, seed=0)
+    lengths = np.array([161, 90, 33], np.int32)
+    if name == "trained_tiny":
+        cfg, params = TINY, _trained_tiny_params()
+    else:
+        cfg, params = DH128, _perturbed_init(DH128, mel, lengths)
+    want, want_len, got, got_len = _both(cfg, params, mel, lengths)
+    np.testing.assert_array_equal(got_len, want_len)
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=1e-3, rtol=1e-3)
+    for b, n in enumerate(got_len):
+        assert not got[b, n:].any()
+
+
+def test_every_block_calls_the_attention_wrapper():
+    """The encoder routes each layer's full-context attention through the
+    wrapper (on CUDA that is the kernel): one call per block, in the
+    [B, H, T, Dh] layout with the per-row key lengths."""
+    cfg = port.ConformerConfig(**DH128)
+    enc = port.ConformerEncoder(cfg).eval()
+    mel = torch.from_numpy(_mel(2, 81, seed=2))
+    lengths = torch.tensor([81, 40], dtype=torch.int32)
+    calls = []
+
+    def counting(qu, qw, k, v, p, lens, t_real):
+        calls.append((tuple(qu.shape), tuple(p.shape), lens.tolist(), t_real))
+        return relpos_attention(qu, qw, k, v, p, lens, t_real)
+
+    ref, _ = enc(mel, lengths)
+    got, out_len = enc(mel, lengths, attention=counting)
+    T = cfg.out_length(81)
+    assert len(calls) == cfg.n_layers
+    assert calls[0] == ((2, 2, T, 128), (2, 2 * T - 1, 128), out_len.tolist(), T)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def test_rel_sinusoid_matches_jax():
+    want = np.asarray(jax_conformer._rel_sinusoid(23, 64))
+    got = port.rel_sinusoid(23, 64).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
+
+
+def test_out_length_matches_jax():
+    a = jax_conformer.ConformerConfig()
+    b = port.ConformerConfig()
+    for n in (1, 2, 7, 8, 9, 100, 1501):
+        assert b.out_length(n) == a.out_length(n)
