@@ -3,28 +3,43 @@
 
     python3 chip_smoke.py
 
-Needs one NVIDIA GPU (Hopper: the kernel is built for sm_90a) and `nvcc`;
+Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and `nvcc`;
 there is no CPU fallback. It imports nothing of JAX or of the JAX package.
 Phases, one line each; any failure raises and the final line is not printed:
 
   1. device: the card's name and power limit (nvidia-smi), and the time to
-     build the rel-pos attention kernel from `fluidaudio_tpu_torch/csrc/`;
-  2. the kernel against its plain PyTorch version on the card at the v3
-     shapes (B=4, H=8, T=188, Dh=128, lengths [188,100,17,188], bf16; max abs
-     error on valid rows below 0.06) and on the shift-only probe;
-  3. the trained `test-tiny` fixture on the card (f32, through the kernel):
-     5- and 40-word utterances at WER <= 0.02, and the same text as the port
-     on the CPU;
-  4. Parakeet TDT v3 at full width (24 x 1024, 8 heads, vocab 8192) with
-     seeded random weights: 5 s, 15 s and ~40 s chunked requests through
-     `AsrManager.transcribe` (parallel_chunk_batch=4); the attention kernel
-     must launch 24 times per encoder call; then the kernel encoder against
-     the plain-attention encoder on one 15 s batch;
-  5. timing: the kernel against the plain version at B=128, the v3 encoder
-     at B=128 with each, and the v3 `build_pipeline(128)` RTFx on 15 s
-     windows with the joint blank bias calibrated to 9-12 tokens/s of audio.
+     build both kernels from `fluidaudio_tpu_torch/csrc/` (one nvcc each, in
+     parallel);
+  2. the rel-pos attention kernel against its plain PyTorch version on the
+     card at the v3 shapes (B=4, H=8, T=188, Dh=128, lengths
+     [188,100,17,188], bf16; max abs error on valid rows below 0.06) and on
+     the shift-only probe;
+  3. the int8 matmul kernel against its plain version at the v3 shapes
+     (752 x 1024 x 4096 and 752 x 4096 x 1024 with bias, the 375-row pos
+     projection without) and the JAX test shapes, bit for bit, one launch
+     counted per call;
+  4. the trained `test-tiny` fixture on the card, f32 and
+     quantization="int8": 5- and 40-word utterances, WER printed (gate 0.02
+     for f32) and the same text as the port on the CPU;
+  5. the main path, Parakeet TDT v3 at full width (24 x 1024, 8 heads, vocab
+     8192) with seeded random weights: 5 s, 15 s and ~40 s chunked requests
+     through `AsrManager.transcribe` (parallel_chunk_batch=4); the attention
+     kernel must launch 24 times per encoder call; then the kernel encoder
+     against the plain-attention encoder on one 15 s batch;
+  6. the same requests on v3 with quantization="int8" (one of them with
+     language="en"): 265 int8 launches and 24 attention launches per encoder
+     call; the int8 encoder with the kernel against the int8 encoder with
+     the plain int8 matmul on one 15 s x 4 batch; the cosine between the
+     int8 and bf16 encoders on the same weights (information only);
+  7. timing (CUDA events, card name and power limit on every line): both
+     kernels against their plain versions (and, for context only, bf16
+     `F.linear` and `torch._int_mm`, which are not the same function), the
+     v3 encoder at B=128 in bf16 and int8, and the bf16 and int8
+     `build_pipeline(128)` RTFx on 15 s windows with the joint blank bias
+     calibrated to 9-12 tokens/s of audio.
 
-The line before the last is the kernel record (JSON); the last line is
+The line before the last is the kernel record (JSON, with each kernel's
+launches on its main path, bound and times); the last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
 
@@ -45,6 +60,16 @@ PARITY_TOL = 0.06  # bf16 inputs, f32 math on both sides (scripts/tpu_kernel_par
 WER_GATE = 0.02
 TARGET_TOK_PER_S = (9.0, 12.0)  # LibriSpeech-like emission band of v3
 WINDOW = 240_000  # 15 s at 16 kHz
+INT8_LAYERS_PER_BLOCK = 11  # ffn{1,2}_fc{1,2}, mhsa.{q,k,v,pos,out}, conv.pointwise{1,2}
+# (M, K, N, bias, x and out dtype): v3 fc1/fc2 on 4 x 188 frames, the pos
+# projection (2T-1 rows, no bias), the shapes of tests/test_quant_pallas.py
+INT8_SHAPES = [(752, 1024, 4096, True, torch.bfloat16), (752, 4096, 1024, True, torch.bfloat16),
+               (375, 1024, 1024, False, torch.bfloat16), (37, 128, 130, False, torch.float32),
+               (100, 256, 192, True, torch.float32)]
+# one NVIDIA H100 SXM (data sheet, dense): HBM rate, bf16 and int8 tensor-core peaks
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 
 
 class SmokeFailure(RuntimeError):
@@ -77,6 +102,29 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
+    """The least time in ms the card could take: bytes over the HBM rate or
+    operations over the peak, whichever is larger, and which one it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_cost(B: int, H: int, T: int, Dh: int) -> tuple[int, int]:
+    """(bytes, bf16 operations) of one relpos_attention call with every row
+    full length: q.k, the shifted q.p band and P.V over every key; bf16 in,
+    f32 out, each read or written once."""
+    nbytes = (4 * B * H * T * Dh + H * (2 * T - 1) * Dh) * 2 + B * 4 + B * H * T * Dh * 4
+    return nbytes, 3 * 2 * B * H * T * T * Dh
+
+
+def int8_cost(M: int, K: int, N: int, with_bias: bool, x_bytes: int, out_bytes: int
+              ) -> tuple[int, int]:
+    """(bytes, int8 operations) of one int8_matmul_fused call: x, the codes,
+    the column scales and the bias read once, the output written once."""
+    return (M * K * x_bytes + N * K + N * 4 + (N * 4 if with_bias else 0) + M * N * out_bytes,
+            2 * M * K * N)
+
+
 def attention_inputs(B, H, T, Dh, dtype, device, seed):
     g = torch.Generator(device=device).manual_seed(seed)
     rnd = lambda *shape: torch.randn(*shape, generator=g, device=device).to(dtype)
@@ -84,22 +132,54 @@ def attention_inputs(B, H, T, Dh, dtype, device, seed):
         H, 2 * T - 1, Dh)
 
 
+def int8_inputs(M, K, N, with_bias, dtype, device, seed):
+    from fluidaudio_tpu_torch.ops.quant import quantize_cols
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    # rows of different magnitudes, so the row scales differ
+    x = (torch.randn(M, K, generator=g, device=device)
+         * torch.rand(M, 1, generator=g, device=device) * 4).to(dtype)
+    wq, ws = quantize_cols(torch.randn(K, N, generator=g, device=device) * K ** -0.5)
+    bias = torch.randn(N, generator=g, device=device) * 0.1 if with_bias else None
+    return x, wq.T.contiguous(), ws.reshape(-1), bias
+
+
 def valid_rows_err(a: torch.Tensor, b: torch.Tensor, lengths: list[int]) -> float:
     return max((a[i, :, :n] - b[i, :, :n]).abs().max().item() for i, n in enumerate(lengths))
+
+
+def reset_launches(*wrappers) -> None:
+    for w in wrappers:
+        w.launches = 0
+
+
+def set_int8_matmul(encoder, fn) -> None:
+    """Route every Int8Linear of `encoder` through `fn` (the kernel's wrapper
+    or its plain version)."""
+    from fluidaudio_tpu_torch.ops.quant import Int8Linear
+
+    for m in encoder.modules():
+        if isinstance(m, Int8Linear):
+            m.matmul = fn
 
 
 # ---------------------------------------------------------------- phases
 
 
-def phase_device(attn) -> tuple[str, float]:
+def phase_device(attn, i8) -> tuple[str, dict[str, float]]:
+    from fluidaudio_tpu_torch.ops import build
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
-    build_s = attn.build_seconds()
+    build_s = build.build(attn.KERNEL_SOURCE, i8.KERNEL_SOURCE)
+    attn.load_library()
+    i8.load_library()
+    builds = " | ".join(f"{name} {sec:.2f} s" for name, sec in build_s.items())
     print(f"phase 1 device: {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
-          f"| kernel build {build_s:.2f} s")
+          f"| kernel builds (parallel nvcc): {builds}")
     return smi, build_s
 
 
@@ -126,10 +206,34 @@ def phase_kernel_parity(attn, device) -> float:
     torch.cuda.synchronize()
     shift_err = (got1 - attn.relpos_attention_plain(z, qw1, z, v1, p1, lens1, T)).abs().max().item()
     check(shift_err < PARITY_TOL, f"shift-only probe err {shift_err}")
-    print(f"phase 2 kernel vs plain: B=4 H=8 T=188 Dh=128 bf16 lengths {lengths} "
+    print(f"phase 2 attention kernel vs plain: B=4 H=8 T=188 Dh=128 bf16 lengths {lengths} "
           f"max_abs_err(valid rows) {err:.3e} | shift-only probe {shift_err:.3e} "
           f"| tol {PARITY_TOL}")
     return err
+
+
+def phase_int8_parity(i8, device) -> float:
+    """Bit-equal is expected: the kernel rounds exactly where the plain
+    version does (IEEE quotient, half to even, exact integer sum, separate
+    products and sum), so the tolerance is 0."""
+    parts, worst = [], 0.0
+    for idx, (M, K, N, with_bias, dtype) in enumerate(INT8_SHAPES):
+        x, wq, ws, bias = int8_inputs(M, K, N, with_bias, dtype, device, seed=10 + idx)
+        before = i8.int8_matmul_fused.launches
+        got = i8.int8_matmul_fused(x, wq, ws, bias, dtype)
+        torch.cuda.synchronize()
+        check(i8.int8_matmul_fused.launches == before + 1, "one call must count one launch")
+        want = i8.int8_matmul_fused_plain(x, wq, ws, bias, dtype)
+        check(bool(torch.isfinite(got).all()), f"int8 kernel output not finite at {M}x{K}x{N}")
+        err = (got.float() - want.float()).abs().max().item()
+        equal = torch.equal(got, want)
+        check(equal, f"int8 kernel vs plain at {M}x{K}x{N}: {int((got != want).sum())} "
+                     f"elements differ, max abs {err}")
+        worst = max(worst, err)
+        parts.append(f"{M}x{K}x{N}{' +bias' if with_bias else ''} "
+                     f"{str(dtype).removeprefix('torch.')}: bit-equal")
+    print(f"phase 3 int8 kernel vs plain (tol 0, bit-equal): {' | '.join(parts)}")
+    return worst
 
 
 def phase_trained_fixture(device) -> None:
@@ -139,23 +243,27 @@ def phase_trained_fixture(device) -> None:
     from fluidaudio_tpu_torch.models.zoo import AsrModels
     from fluidaudio_tpu_torch.train import tiny_corpus as tc
 
-    def manager(dev):
+    def manager(dev, quantization):
         models = AsrModels.load("test-tiny", checkpoint_dir=TRAINED_ASR, device=dev,
-                                allow_random_init=False)
+                                allow_random_init=False, quantization=quantization)
         return AsrManager(models, ASRConfig(parallel_chunk_batch=2))
 
-    on_card, on_cpu = manager(device), manager("cpu")
-    rs = np.random.RandomState(12345)  # the draws of train/fixtures.eval_asr_fixture
-    parts = []
-    for n in (5, 40):
-        ids = rs.randint(0, tc.N_WORDS, size=n)
-        audio = tc.make_utterance(ids, rs)
-        text = on_card.transcribe(audio).text
-        rate = wer(tc.transcript_text(ids), text).rate
-        check(rate <= WER_GATE, f"{n}-word WER {rate} > {WER_GATE}: {text!r}")
-        check(text == on_cpu.transcribe(audio).text, f"{n}-word text differs from the CPU run")
-        parts.append(f"{n} words WER {rate:.4f}")
-    print(f"phase 3 trained test-tiny on card: {' | '.join(parts)} | same text as CPU")
+    for quantization in ("none", "int8"):
+        on_card, on_cpu = manager(device, quantization), manager("cpu", quantization)
+        rs = np.random.RandomState(12345)  # the draws of train/fixtures.eval_asr_fixture
+        parts = []
+        for n in (5, 40):
+            ids = rs.randint(0, tc.N_WORDS, size=n)
+            audio = tc.make_utterance(ids, rs)
+            text = on_card.transcribe(audio).text
+            rate = wer(tc.transcript_text(ids), text).rate
+            if quantization == "none":
+                check(rate <= WER_GATE, f"{n}-word WER {rate} > {WER_GATE}: {text!r}")
+            check(text == on_cpu.transcribe(audio).text,
+                  f"{quantization}: {n}-word text differs from the CPU run")
+            parts.append(f"{n} words WER {rate:.4f}")
+        print(f"phase 4 trained test-tiny on card, quantization={quantization}: "
+              f"{' | '.join(parts)} | same text as CPU")
 
 
 def encoder_calls_for(manager, audio: np.ndarray) -> int:
@@ -197,14 +305,18 @@ def calibrate_blank_bias(pipeline, models, audio, lengths, seconds: float) -> fl
     return tps
 
 
-def phase_v3_requests(attn, device, version: str = "v3"):
-    """The main path: AsrModels.load -> AsrManager.transcribe at full width."""
+def v3_requests(attn, i8, device, quantization: str, version: str = "v3"):
+    """AsrModels.load -> AsrManager.transcribe at full width, with every
+    kernel count set to 0 just before the requests and read just after.
+    -> (models, manager, {kernel: launches}, one line of results)."""
     from fluidaudio_tpu_torch.asr.config import ASRConfig
     from fluidaudio_tpu_torch.asr.manager import AsrManager
     from fluidaudio_tpu_torch.models.zoo import AsrModels
 
+    int8 = quantization == "int8"
     t0 = time.perf_counter()
-    models = AsrModels.load(version, device=device, allow_random_init=True, rng_seed=0)
+    models = AsrModels.load(version, device=device, allow_random_init=True, rng_seed=0,
+                            quantization=quantization)
     manager = AsrManager(models, ASRConfig(parallel_chunk_batch=4))
     load_s = time.perf_counter() - t0
     n_layers = models.spec.conformer.n_layers
@@ -214,80 +326,166 @@ def phase_v3_requests(attn, device, version: str = "v3"):
     cal = np.stack([speechlike(rs, 15.0) for _ in range(16)])
     tps = calibrate_blank_bias(manager.build_pipeline(16), models, torch.from_numpy(cal),
                                torch.full((16,), WINDOW, dtype=torch.int32), 16 * 15.0)
-    requests = [("5s", speechlike(rs, 5.0)), ("15s", speechlike(rs, 15.0)),
-                ("40s chunked", speechlike(rs, 40.0))]
+    requests = [("5s", speechlike(rs, 5.0), None), ("15s", speechlike(rs, 15.0), None),
+                ("40s chunked", speechlike(rs, 40.0), None)]
+    if int8:
+        requests[1] = ("15s en", requests[1][1], "en")
 
     torch.cuda.synchronize()
-    attn.relpos_attention.launches = 0
+    reset_launches(attn.relpos_attention, i8.int8_matmul_fused)
     results = []
-    for name, audio in requests:
+    for name, audio, language in requests:
         encoder_calls = encoder_calls_for(manager, audio)
-        before = attn.relpos_attention.launches
+        a0, q0 = attn.relpos_attention.launches, i8.int8_matmul_fused.launches
         t0 = time.perf_counter()
-        res = manager.transcribe(audio)
+        res = manager.transcribe(audio, language=language)
         wall = time.perf_counter() - t0
-        launched = attn.relpos_attention.launches - before
-        check(launched == n_layers * encoder_calls,
-              f"{name}: {launched} attention launches, want {n_layers} x {encoder_calls}")
+        a_n = attn.relpos_attention.launches - a0
+        q_n = i8.int8_matmul_fused.launches - q0
+        check(a_n == n_layers * encoder_calls,
+              f"{name}: {a_n} attention launches, want {n_layers} x {encoder_calls}")
+        want_q = (INT8_LAYERS_PER_BLOCK * n_layers + 1) * encoder_calls if int8 else 0
+        check(q_n == want_q, f"{name}: {q_n} int8 launches, want {want_q}")
         ids = [t.token_id for t in res.token_timings]
         confs = [t.confidence for t in res.token_timings]
         check(all(0 <= i < vocab_out for i in ids), f"{name}: token id out of range")
         check(bool(np.isfinite(confs).all()) and bool(np.isfinite(res.confidence)),
               f"{name}: non-finite confidences")
-        results.append(f"{name}: {len(ids)} tokens, {launched} launches, {wall:.3f} s")
+        results.append(f"{name}: {len(ids)} tokens, {a_n} attn + {q_n} int8 launches, "
+                       f"{wall:.3f} s")
     torch.cuda.synchronize()
-    launches = attn.relpos_attention.launches
-    check(launches > 0, "the main path never launched the attention kernel")
+    launches = {"relpos_attention": attn.relpos_attention.launches,
+                "int8_matmul_fused": i8.int8_matmul_fused.launches}
+    check(launches["relpos_attention"] > 0, "the path never launched the attention kernel")
+    check(launches["int8_matmul_fused"] > 0 or not int8, "the path never launched int8")
+    line = (f"{version} {quantization} full width ({n_layers}x{models.spec.conformer.d_model}, "
+            f"load {load_s:.1f} s, calibrated {tps:.2f} tok/s): {' | '.join(results)} | "
+            f"launches {launches}")
+    return models, manager, launches, line
 
-    # kernel encoder against the plain-attention encoder on one 15 s batch
+
+def encoder_batch(models, device, rs):
+    """One 15 s x 4 batch with ragged lengths -> (mel, mel lengths)."""
     lengths = [WINDOW, 160_000, 80_000, WINDOW]
     audio = torch.from_numpy(np.stack([speechlike(rs, 15.0) for _ in lengths])).to(device)
-    mel, mel_len = models.mel(audio, torch.tensor(lengths, dtype=torch.int32, device=device))
+    return models.mel(audio, torch.tensor(lengths, dtype=torch.int32, device=device))
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+
+
+def phase_v3_bf16(attn, i8, device):
+    """The main path: bf16 v3 requests, then the kernel encoder against the
+    plain-attention encoder on one 15 s batch."""
+    models, manager, launches, line = v3_requests(attn, i8, device, "none")
+    mel, mel_len = encoder_batch(models, device, np.random.RandomState(1))
     enc_k, enc_len = models.encoder(mel, mel_len)
     enc_p, _ = models.encoder(mel, mel_len, attention=attn.relpos_attention_plain)
     check(bool(torch.isfinite(enc_k).all()), "v3 encoder output not finite")
     valid = [int(n) for n in enc_len.tolist()]
     max_abs = max((enc_k[i, :n] - enc_p[i, :n]).abs().max().item() for i, n in enumerate(valid))
-    rel = (torch.linalg.vector_norm(enc_k - enc_p) / torch.linalg.vector_norm(enc_p)).item()
+    rel = rel_l2(enc_k, enc_p)
     check(rel < 0.05, f"kernel encoder vs plain encoder relative error {rel}")
-    print(f"phase 4 {version} full width ({n_layers}x{models.spec.conformer.d_model}, "
-          f"load {load_s:.1f} s, calibrated {tps:.2f} tok/s): {' | '.join(results)} | "
-          f"main-path attention launches {launches} | encoder kernel vs plain on 15 s x4: "
-          f"max_abs {max_abs:.3e} rel {rel:.3e} ({models.spec.conformer.dtype})")
+    print(f"phase 5 {line} | encoder kernel vs plain attention on 15 s x4: max_abs "
+          f"{max_abs:.3e} rel {rel:.3e} ({models.spec.conformer.dtype})")
+    return models, manager, launches, (mel, mel_len, enc_k)
+
+
+def phase_v3_int8(attn, i8, device, bf16_encoded):
+    """The int8 path: the same requests on v3 with quantization="int8", then
+    the int8 encoder with the kernel against the int8 encoder with the plain
+    int8 matmul, and the cosine to the bf16 encoder on the same weights."""
+    models, manager, launches, line = v3_requests(attn, i8, device, "int8")
+    mel, mel_len, enc_bf16 = bf16_encoded
+    enc_k, enc_len = models.encoder(mel, mel_len)
+    set_int8_matmul(models.encoder, i8.int8_matmul_fused_plain)
+    enc_p, _ = models.encoder(mel, mel_len)
+    set_int8_matmul(models.encoder, i8.int8_matmul_fused)
+    check(bool(torch.isfinite(enc_k).all()), "v3 int8 encoder output not finite")
+    rel = rel_l2(enc_k, enc_p)
+    check(rel < 0.05, f"int8 kernel encoder vs plain int8 encoder relative error {rel}")
+    cos = torch.nn.functional.cosine_similarity(enc_k.flatten(), enc_bf16.flatten(), dim=0)
+    print(f"phase 6 {line} | int8 encoder kernel vs plain int8 matmul on 15 s x4: rel "
+          f"{rel:.3e}, bit-equal {torch.equal(enc_k, enc_p)} | cosine int8 vs bf16 encoder "
+          f"(same weights, information only) {cos.item():.5f}")
     return models, manager, launches
 
 
-def time_kernel(attn, device, smi: str, batch: int = 128) -> tuple[float, float]:
-    qu, qw, k, v, p = attention_inputs(batch, 8, 188, 128, torch.bfloat16, device, seed=1)
-    lens = torch.full((batch,), 188, dtype=torch.int32, device=device)
-    kernel = lambda: attn.relpos_attention(qu, qw, k, v, p, lens, 188)
-    plain = lambda: attn.relpos_attention_plain(qu, qw, k, v, p, lens, 188)
+def time_attention(attn, device, smi: str, batch: int = 128) -> dict:
+    B, H, T, Dh = batch, 8, 188, 128
+    qu, qw, k, v, p = attention_inputs(B, H, T, Dh, torch.bfloat16, device, seed=1)
+    lens = torch.full((B,), T, dtype=torch.int32, device=device)
+    kernel = lambda: attn.relpos_attention(qu, qw, k, v, p, lens, T)
+    plain = lambda: attn.relpos_attention_plain(qu, qw, k, v, p, lens, T)
     # plain, kernel, kernel, plain: drift in clocks shows up as a spread
     p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
-    kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
-    print(f"timing [{smi}] relpos_attention B={batch} H=8 T=188 Dh=128 bf16: kernel "
-          f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms")
-    return kernel_ms, plain_ms
+    nbytes, ops = attention_cost(B, H, T, Dh)  # all rows are full length here
+    bound_ms, bound_by = bound(nbytes, ops, BF16_FLOPS)
+    print(f"timing [{smi}] relpos_attention B={B} H={H} T={T} Dh={Dh} bf16: kernel "
+          f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}), library call: none computes the XL-shifted scores")
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
-def time_pipeline(attn, device, smi: str, models, manager, batch: int = 128) -> float:
+def time_int8(i8, device, smi: str, rows: int = 128 * 188) -> dict:
+    """The FFN shapes of a B=128 encoder call. bf16 `F.linear` and
+    `torch._int_mm` (the int8 product alone) are context, not the same
+    function; no single PyTorch call quantises, multiplies and dequantises."""
+    out = {}
+    for K, N in ((1024, 4096), (4096, 1024)):
+        x, wq, ws, bias = int8_inputs(rows, K, N, True, torch.bfloat16, device, seed=K)
+        kernel = lambda: i8.int8_matmul_fused(x, wq, ws, bias, torch.bfloat16)
+        plain = lambda: i8.int8_matmul_fused_plain(x, wq, ws, bias, torch.bfloat16)
+        p1, k1, k2, p2 = (cuda_ms(plain, 5), cuda_ms(kernel), cuda_ms(kernel),
+                          cuda_ms(plain, 5))
+        w_bf16 = (wq.float() * ws[:, None]).bfloat16()
+        linear_ms = cuda_ms(lambda: torch.nn.functional.linear(x, w_bf16, bias.bfloat16()))
+        xq = i8.quantize_rows(x)[0]
+        try:
+            int_mm = f"{cuda_ms(lambda: torch._int_mm(xq, wq.T)):.4f} ms"
+        except RuntimeError as e:  # context only: the port never calls it
+            int_mm = f"not measured ({str(e).splitlines()[0][:80]})"
+        nbytes, ops = int8_cost(rows, K, N, True, 2, 2)
+        bound_ms, bound_by = bound(nbytes, ops, INT8_OPS)
+        print(f"timing [{smi}] int8_matmul_fused M={rows} K={K} N={N} bf16 +bias: kernel "
+              f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}) | context, not the same function: bf16 F.linear "
+              f"{linear_ms:.4f} ms, torch._int_mm {int_mm}")
+        if not out:  # the fc1 shape goes into the kernel record
+            out = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": None}
+    return out
+
+
+def time_encoders(attn, device, smi: str, bf16_models, int8_models, batch: int = 128) -> None:
+    rs = np.random.RandomState(3)
+    audio = torch.from_numpy(np.stack([speechlike(rs, 15.0) for _ in range(batch)])).to(device)
+    lengths = torch.full((batch,), WINDOW, dtype=torch.int32, device=device)
+    mel, mel_len = bf16_models.mel(audio, lengths)
+    bf16 = lambda: bf16_models.encoder(mel, mel_len)
+    bf16_plain = lambda: bf16_models.encoder(mel, mel_len, attention=attn.relpos_attention_plain)
+    int8 = lambda: int8_models.encoder(mel, mel_len)
+    e = [cuda_ms(f, iters=3) for f in (bf16_plain, bf16, bf16, bf16_plain)]
+    print(f"timing [{smi}] v3 encoder B={batch} 15 s: bf16 with kernel {e[1]:.1f}/{e[2]:.1f} "
+          f"ms, bf16 with plain attention {e[0]:.1f}/{e[3]:.1f} ms")
+    q = [cuda_ms(f, iters=3) for f in (bf16, int8, int8, bf16)]
+    print(f"timing [{smi}] v3 encoder B={batch} 15 s: int8 {q[1]:.1f}/{q[2]:.1f} ms, "
+          f"bf16 {q[0]:.1f}/{q[3]:.1f} ms")
+
+
+def time_pipeline(device, smi: str, models, manager, batch: int = 128) -> float:
     rs = np.random.RandomState(3)
     audio = torch.from_numpy(np.stack([speechlike(rs, 15.0) for _ in range(batch)]))
     audio = audio.to(device)
     lengths = torch.full((batch,), WINDOW, dtype=torch.int32, device=device)
-
-    # the encoder layer alone, with the kernel and with the plain attention
-    mel, mel_len = models.mel(audio, lengths)
-    enc_kernel = lambda: models.encoder(mel, mel_len)
-    enc_plain = lambda: models.encoder(mel, mel_len, attention=attn.relpos_attention_plain)
-    e = [cuda_ms(f, iters=3) for f in (enc_plain, enc_kernel, enc_kernel, enc_plain)]
-    print(f"timing [{smi}] {models.spec.name} encoder B={batch} 15 s: with kernel "
-          f"{e[1]:.1f}/{e[2]:.1f} ms, with plain attention {e[0]:.1f}/{e[3]:.1f} ms")
     pipeline = manager.build_pipeline(batch)
     seconds = batch * 15.0
     tps = calibrate_blank_bias(pipeline, models, audio, lengths, seconds)
     check(TARGET_TOK_PER_S[0] <= tps <= TARGET_TOK_PER_S[1],
           f"blank-bias calibration reached {tps} tok/s")
+    torch.cuda.reset_peak_memory_stats()
     best = float("inf")
     for _ in range(5):
         torch.cuda.synchronize()
@@ -297,9 +495,10 @@ def time_pipeline(attn, device, smi: str, models, manager, batch: int = 128) -> 
         best = min(best, time.perf_counter() - t0)
     tokens = int(result.counts.sum().item())
     rtfx = seconds / best
-    print(f"timing [{smi}] {models.spec.name} build_pipeline({batch}) 15 s windows: "
-          f"best of 5 {best * 1e3:.1f} ms -> RTFx {rtfx:.1f} | {tokens / seconds:.2f} tok/s "
-          f"of audio | peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    print(f"timing [{smi}] {models.spec.name} {models.spec.conformer.quantization} "
+          f"build_pipeline({batch}) 15 s windows: best of 5 {best * 1e3:.1f} ms -> RTFx "
+          f"{rtfx:.1f} | {tokens / seconds:.2f} tok/s of audio | peak mem "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     return rtfx
 
 
@@ -308,23 +507,37 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from fluidaudio_tpu_torch.ops import attention as attn
+    from fluidaudio_tpu_torch.ops import int8_matmul as i8
 
     device = torch.device("cuda", 0)
-    smi, _ = phase_device(attn)
-    err = phase_kernel_parity(attn, device)
+    smi, _ = phase_device(attn, i8)
+    attn_err = phase_kernel_parity(attn, device)
+    int8_err = phase_int8_parity(i8, device)
     phase_trained_fixture(device)
-    models, manager, launches = phase_v3_requests(attn, device)
-    kernel_ms, plain_ms = time_kernel(attn, device, smi)
-    time_pipeline(attn, device, smi, models, manager)
+    bf16_models, bf16_manager, bf16_launches, encoded = phase_v3_bf16(attn, i8, device)
+    int8_models, int8_manager, int8_launches = phase_v3_int8(attn, i8, device, encoded)
+    del encoded
+    attn_t = time_attention(attn, device, smi)
+    int8_t = time_int8(i8, device, smi)
+    time_encoders(attn, device, smi, bf16_models, int8_models)
+    time_pipeline(device, smi, bf16_models, bf16_manager)
+    time_pipeline(device, smi, int8_models, int8_manager)
     print(json.dumps({"kernels": [{
         "name": "relpos_attention",
         "route": "cuda",
         "source": "fluidaudio_tpu_torch/csrc/relpos_attention.cu",
         "replaces": "fluidaudio_tpu/ops/attention_pallas.py:151",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
+        "launches": bf16_launches["relpos_attention"],
+        "max_abs_err": attn_err,
+        **attn_t,
+    }, {
+        "name": "int8_matmul_fused",
+        "route": "cuda",
+        "source": "fluidaudio_tpu_torch/csrc/int8_matmul_fused.cu",
+        "replaces": "fluidaudio_tpu/ops/quant_pallas.py:107",
+        "launches": int8_launches["int8_matmul_fused"],
+        "max_abs_err": int8_err,
+        **int8_t,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -8,8 +8,11 @@ Audio is padded into a small set of sample-width buckets and per-row valid
 lengths mask the padding. int16 PCM is shipped to the device as int16 and
 upcast there (half the host->device bytes).
 
-Not ported yet: the `language=` decode filter (`utils/language.py`) and
-mesh-sharded serving (`set_mesh`).
+`language=` (on `transcribe` and `build_pipeline`) enables decode-time
+script filtering with the English blocklist (`utils/language.py`): a
+[vocab+1] bool mask of allowed tokens, built once per language.
+
+Not ported yet: mesh-sharded serving (`set_mesh`).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from fluidaudio_tpu_torch.utils.audio_source import (
     make_audio_source,
 )
 from fluidaudio_tpu_torch.utils.converter import AudioConverter
+from fluidaudio_tpu_torch.utils.language import TokenLanguageFilter
 from fluidaudio_tpu_torch.utils.logging import get_logger
 from fluidaudio_tpu_torch.utils.timing import ProgressEmitter
 
@@ -71,6 +75,7 @@ class AsrManager:
         self._case_canon = case_variant_canonical_ids(vocab)
         # per-session progress stream for long transcriptions
         self.progress = ProgressEmitter()
+        self._language_masks: dict[str, torch.Tensor] = {}
 
     # ------------------------------------------------------------- pipeline
 
@@ -85,17 +90,20 @@ class AsrManager:
             consecutive_blank_limit=tdt.consecutive_blank_limit,
         )
 
-    def build_pipeline(self, batch: int, stateful: bool = False) -> Callable:
+    def build_pipeline(self, batch: int, language: str | None = None,
+                       stateful: bool = False) -> Callable:
         """Pipeline fn(audio [B, W], lengths [B], finalize=None) ->
         (TdtResult, encoder lengths), on the models' device. With
         `stateful=True`, fn(audio, lengths, decoder_state, finalize=None) so a
         caller-held carry continues across calls. `finalize` is an optional
         [B] bool mask of rows decoding their utterance's LAST chunk; those
-        run the decoder's last-chunk flush."""
+        run the decoder's last-chunk flush. `language` enables decode-time
+        script filtering + the English blocklist."""
         models = self.models
         dcfg = self._decode_cfg
         pcfg = models.spec.predictor
         device = models.device
+        allowed_mask = self._language_mask(language) if language else None
 
         @torch.no_grad()
         def run(audio, lengths, state: TdtDecodeState, finalize=None):
@@ -110,7 +118,7 @@ class AsrManager:
                 finalize = torch.as_tensor(finalize).to(device)
             result = tdt_greedy_decode(
                 dcfg, models.predictor, models.joint, enc_out, enc_len, state,
-                finalize_mask=finalize,
+                allowed_mask=allowed_mask, finalize_mask=finalize,
             )
             return result, enc_len
 
@@ -124,12 +132,28 @@ class AsrManager:
 
         return pipeline
 
+    def _language_mask(self, language: str) -> torch.Tensor:
+        """[vocab+1] bool on the models' device: tokens allowed for
+        `language` (script match minus the English blocklist; the blank slot
+        is ignored by the filter)."""
+        if language not in self._language_masks:
+            vocab = dict(self.models.tokenizer.vocabulary)  # {id: piece}
+            filt = TokenLanguageFilter(language, vocab)
+            n = self.models.blank_id + 1
+            mask = np.zeros((n,), bool)
+            for tid in filt.allowed:
+                if tid < n:
+                    mask[tid] = True
+            self._language_masks[language] = torch.from_numpy(mask).to(self.models.device)
+        return self._language_masks[language]
+
     # ------------------------------------------------------------ transcribe
 
     def transcribe(
         self,
         audio: np.ndarray | str | Path,
         sample_rate: int | None = None,
+        language: str | None = None,
         decoder_state: TdtDecodeState | None = None,
         previous_tokens: list[int] | None = None,
         finalize: bool = True,
@@ -138,7 +162,8 @@ class AsrManager:
 
         `finalize=True` (the default: a single call is first and last chunk)
         runs the decoder's last-chunk flush; streaming callers decoding an
-        intermediate window pass False. `decoder_state` carries TDT decoder
+        intermediate window pass False. `language` enables decode-time script
+        filtering (e.g. "en", "ru", "ja"). `decoder_state` carries TDT decoder
         state across calls (single-window path only); the updated state is
         returned on `ASRResult.decoder_state`. `previous_tokens` are the tail
         token IDs of the preceding sequential chunk: boundary-duplicated
@@ -169,7 +194,8 @@ class AsrManager:
             return result
 
         if n <= ASRConstants.MAX_MODEL_SAMPLES:
-            tokens, final_state = self._transcribe_single(source, decoder_state, finalize)
+            tokens, final_state = self._transcribe_single(
+                source, language, decoder_state, finalize)
         else:
             if decoder_state is not None:
                 raise ValueError(
@@ -178,7 +204,7 @@ class AsrManager:
                     "samples): windows decode in parallel with no sequential "
                     "carry. Split the audio yourself or drop decoder_state."
                 )
-            tokens, final_state = self._transcribe_chunked(source, finalize)
+            tokens, final_state = self._transcribe_chunked(source, language, finalize)
 
         if previous_tokens:
             _, removed = self.remove_duplicate_token_sequence(
@@ -193,8 +219,8 @@ class AsrManager:
         return result
 
     def _transcribe_single(
-        self, source: AudioSampleSource, decoder_state: TdtDecodeState | None = None,
-        finalize: bool = True,
+        self, source: AudioSampleSource, language: str | None = None,
+        decoder_state: TdtDecodeState | None = None, finalize: bool = True,
     ) -> tuple[list[TokenWindow], TdtDecodeState]:
         n = source.sample_count
         width = next((b for b in _BUCKETS if b >= n), ASRConstants.MAX_MODEL_SAMPLES)
@@ -202,15 +228,16 @@ class AsrManager:
         lengths = torch.tensor([n], dtype=torch.int32)
         fin = torch.tensor([finalize])
         if decoder_state is None:
-            result, _ = self.build_pipeline(1)(audio, lengths, fin)
+            result, _ = self.build_pipeline(1, language)(audio, lengths, fin)
         else:
             # caller-held state: decode continues from the provided carry
-            result, _ = self.build_pipeline(1, stateful=True)(
+            result, _ = self.build_pipeline(1, language, stateful=True)(
                 audio, lengths, decoder_state, fin)
         return _extract_tokens(result, [0])[0], result.state
 
     def _transcribe_chunked(
-        self, source: AudioSampleSource, finalize: bool = True,
+        self, source: AudioSampleSource, language: str | None = None,
+        finalize: bool = True,
     ) -> tuple[list[TokenWindow], None]:
         cp = ChunkProcessor(source)
         layout, windows = cp.plan_windows(
@@ -220,7 +247,7 @@ class AsrManager:
         )
         B = self.config.parallel_chunk_batch
         W = layout.window_samples
-        fn = self.build_pipeline(B)
+        fn = self.build_pipeline(B, language)
 
         merged: list[TokenWindow] = []
         n_groups = -(-len(windows) // B)

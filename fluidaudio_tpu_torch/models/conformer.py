@@ -11,6 +11,11 @@ Module and parameter names mirror the flax tree (`block{i}.mhsa.q.weight` for
 `params/block{i}/mhsa/q/kernel`), so `utils.weights.load_npz` maps the JAX
 package's npz checkpoints directly. Parameters are stored in the compute
 dtype (`ConformerConfig.dtype`); the encoder output is f32.
+
+`ConformerConfig.quantization="int8"` swaps the layers that JAX builds with
+`_dense` (FFN fc1/fc2, the q/k/v/pos/out projections, the conv module's
+pointwise convs and the subsampling projection) for `ops.quant.Int8Linear`,
+whose f32 scales and biases survive the cast to the compute dtype.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from fluidaudio_tpu_torch.ops.attention import relpos_attention
+from fluidaudio_tpu_torch.ops.quant import Int8Linear
 
 AttentionFn = Callable[..., torch.Tensor]
 
@@ -38,6 +44,9 @@ class ConformerConfig:
     conv_kernel: int = 9
     subsampling_channels: int = 256
     dtype: str = "bfloat16"  # compute dtype
+    # "none" | "int8": dynamic w8a8 on the large matmuls through
+    # ops/quant.Int8Linear (weights quantised once, at load)
+    quantization: str = "none"
     # NeMo ConformerEncoder `xscaling`: multiply subsampled features by
     # sqrt(d_model) before the blocks
     xscale: bool = True
@@ -62,6 +71,16 @@ def _layer_norm(d: int, device) -> nn.LayerNorm:
     return nn.LayerNorm(d, eps=1e-5, device=device)
 
 
+def _linear(cfg: ConformerConfig, d_in: int, d_out: int, bias: bool = True,
+            device=None) -> nn.Module:
+    """nn.Linear or its int8 drop-in, per cfg.quantization (JAX `_dense`)."""
+    if cfg.quantization == "int8":
+        return Int8Linear(d_in, d_out, bias=bias, out_dtype=cfg.compute_dtype, device=device)
+    if cfg.quantization != "none":
+        raise ValueError(f"quantization must be 'none' or 'int8', got {cfg.quantization!r}")
+    return nn.Linear(d_in, d_out, bias=bias, device=device)
+
+
 class GLUConv(nn.Module):
     """Conformer convolution module (inference BN folded as scale/bias)."""
 
@@ -69,13 +88,13 @@ class GLUConv(nn.Module):
         super().__init__()
         d = cfg.d_model
         self.ln = _layer_norm(d, device)
-        self.pointwise1 = nn.Linear(d, 2 * d, device=device)
+        self.pointwise1 = _linear(cfg, d, 2 * d, device=device)
         # NeMo depthwise_conv has no bias; SAME padding
         self.depthwise = nn.Conv1d(d, d, cfg.conv_kernel, padding=cfg.conv_kernel // 2,
                                    groups=d, bias=False, device=device)
         self.bn_scale = nn.Parameter(torch.ones(d, device=device))
         self.bn_bias = nn.Parameter(torch.zeros(d, device=device))
-        self.pointwise2 = nn.Linear(d, d, device=device)
+        self.pointwise2 = _linear(cfg, d, d, device=device)
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
         x = self.pointwise1(self.ln(x))
@@ -112,13 +131,13 @@ class RelPosMHSA(nn.Module):
         d, H, Dh = cfg.d_model, cfg.n_heads, cfg.head_dim
         self.n_heads = H
         self.ln = _layer_norm(d, device)
-        self.q = nn.Linear(d, d, device=device)
-        self.k = nn.Linear(d, d, device=device)
-        self.v = nn.Linear(d, d, device=device)
-        self.pos = nn.Linear(d, d, bias=False, device=device)
+        self.q = _linear(cfg, d, d, device=device)
+        self.k = _linear(cfg, d, d, device=device)
+        self.v = _linear(cfg, d, d, device=device)
+        self.pos = _linear(cfg, d, d, bias=False, device=device)
         self.pos_bias_u = nn.Parameter(torch.zeros(H, Dh, device=device))
         self.pos_bias_v = nn.Parameter(torch.zeros(H, Dh, device=device))
-        self.out = nn.Linear(d, d, device=device)
+        self.out = _linear(cfg, d, d, device=device)
 
     def forward(self, x: torch.Tensor, pos_emb: torch.Tensor, lengths: torch.Tensor,
                 attention: AttentionFn = relpos_attention) -> torch.Tensor:
@@ -149,8 +168,8 @@ class ConformerBlock(nn.Module):
         # flat names mirror the flax tree (ffn1_ln, ffn1_fc1, ...)
         for name in ("ffn1", "ffn2"):
             setattr(self, f"{name}_ln", _layer_norm(d, device))
-            setattr(self, f"{name}_fc1", nn.Linear(d, d_ff, device=device))
-            setattr(self, f"{name}_fc2", nn.Linear(d_ff, d, device=device))
+            setattr(self, f"{name}_fc1", _linear(cfg, d, d_ff, device=device))
+            setattr(self, f"{name}_fc2", _linear(cfg, d_ff, d, device=device))
         self.mhsa = RelPosMHSA(cfg, device)
         self.conv = GLUConv(cfg, device)
         self.final_ln = _layer_norm(d, device)
@@ -183,7 +202,7 @@ class DwStridingSubsampling(nn.Module):
         f8 = cfg.n_mels
         for _ in range(3):
             f8 = (f8 - 1) // 2 + 1
-        self.proj = nn.Linear(c * f8, cfg.d_model, device=device)
+        self.proj = _linear(cfg, c * f8, cfg.d_model, device=device)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         """mel [B, n_mels, T] -> [B, T//8, d_model]."""

@@ -6,11 +6,17 @@ reads the JAX package's npz checkpoints (`encoder.npz`, `predictor.npz`,
 falls back to seeded random init (explicit opt-in), so benchmarks and
 hermetic runs need no assets. The registry download cache is not ported:
 pass `checkpoint_dir`.
+
+`load` runs on the GPU unless given `device="cpu"`. `quantization="int8"`
+builds the f32 encoder first (random init and/or npz), quantises its linear
+weights once from those f32 values (`ops.quant.quantize_linear_state`, JAX
+`quantize_dense_tree`) and loads them into the int8 encoder; only the
+encoder is quantised, as in JAX.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from pathlib import Path
 
 import torch
@@ -20,6 +26,8 @@ from fluidaudio_tpu_torch.asr.tokenizer import Tokenizer
 from fluidaudio_tpu_torch.models.conformer import ConformerConfig, ConformerEncoder
 from fluidaudio_tpu_torch.models.predictor import PredictorConfig, RnntJoint, RnntPredictor
 from fluidaudio_tpu_torch.ops.mel import MelConfig, MelFrontend
+from fluidaudio_tpu_torch.ops.quant import quantize_linear_state
+from fluidaudio_tpu_torch.utils.device import resolve_device
 from fluidaudio_tpu_torch.utils.logging import get_logger
 from fluidaudio_tpu_torch.utils.weights import load_npz, load_state
 
@@ -119,16 +127,28 @@ class AsrModels:
         version: str = "v3",
         checkpoint_dir: str | Path | None = None,
         *,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
         allow_random_init: bool = True,
         rng_seed: int = 0,
+        dtype: str | None = None,
+        quantization: str | None = None,
     ) -> "AsrModels":
+        """`device=None` is the GPU (RuntimeError without one). `dtype` and
+        `quantization` override the version's `ConformerConfig` fields."""
         spec = ASR_VERSIONS[version]
-        device = torch.device(device)
+        overrides = {k: v for k, v in (("dtype", dtype), ("quantization", quantization))
+                     if v is not None}
+        if overrides:
+            spec = replace(spec, conformer=replace(spec.conformer, **overrides))
+        device = resolve_device(device)
         disable_tf32()
 
+        int8 = spec.conformer.quantization == "int8"
         mel = MelFrontend(spec.mel, device=device)
-        encoder = ConformerEncoder(spec.conformer, device=device).eval()
+        # int8: init/load the f32 encoder, quantise below
+        enc_cfg = (replace(spec.conformer, dtype="float32", quantization="none") if int8
+                   else spec.conformer)
+        encoder = ConformerEncoder(enc_cfg, device=device).eval()
         predictor = RnntPredictor(spec.predictor, device=device).eval()
         joint = RnntJoint(spec.predictor, device=device).eval()
 
@@ -152,6 +172,10 @@ class AsrModels:
                 )
             logger.warning("ASR %s: no checkpoints in %s — using seeded random init",
                            version, ckpt_dir)
+        if int8:
+            state = quantize_linear_state(encoder.state_dict())
+            encoder = ConformerEncoder(spec.conformer, device=device).eval()
+            load_state(encoder, state)
 
         vocab_file = ckpt_dir / "vocab.json" if ckpt_dir is not None else None
         if vocab_file is not None and vocab_file.exists():

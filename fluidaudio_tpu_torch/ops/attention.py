@@ -8,30 +8,23 @@ returns f32 [B, H, T, Dh]. Padded query rows (t >= length) hold values the
 caller masks downstream; compare valid rows only.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-(`csrc/relpos_attention.cu`, built with nvcc at first use into `_build/`)
-or raises; on a CPU tensor it runs `relpos_attention_plain`, the torch port
-of `relpos_attention_reference`. There is no fallback from one to the other.
+(`csrc/relpos_attention.cu`, built with nvcc at first use into `_build/` by
+`ops/build.py`) or raises; on a CPU tensor it runs `relpos_attention_plain`,
+the torch port of `relpos_attention_reference`. There is no fallback from
+one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[1]
-KERNEL_SOURCE = _PKG / "csrc" / "relpos_attention.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+from fluidaudio_tpu_torch.ops import build
+
+KERNEL_SOURCE = build.CSRC / "relpos_attention.cu"
 
 
 def relpos_attention_plain(qu, qw, k, v, p, lengths, t_real: int) -> torch.Tensor:
@@ -52,44 +45,14 @@ def relpos_attention_plain(qu, qw, k, v, p, lengths, t_real: int) -> torch.Tenso
     return torch.einsum("bhts,bhsd->bhtd", probs, v.to(f32))
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    found = shutil.which("nvcc") or str(Path(cuda_home) / "bin" / "nvcc")
-    if not Path(found).exists():
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
-
-
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build (once per source version) and load the kernel's shared library."""
-    src = KERNEL_SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"librelpos_attention_{tag}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(KERNEL_SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = build.load_library(KERNEL_SOURCE)
     fn = lib.relpos_attention_launch
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
-
-
-def build_seconds() -> float:
-    """Build and load the library; seconds it took (0 if already loaded)."""
-    if load_library.cache_info().currsize:
-        return 0.0
-    t0 = time.perf_counter()
-    load_library()
-    return time.perf_counter() - t0
 
 
 def _check(qu, qw, k, v, p, lengths, t_real: int) -> None:

@@ -27,6 +27,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from fluidaudio_tpu_torch.utils.device import resolve_device
+
 # ---------------------------------------------------------------------------
 # Filterbank / window construction (host-side constants)
 # ---------------------------------------------------------------------------
@@ -138,9 +140,11 @@ class MelFrontend:
     so power = re^2 + im^2 comes from one frames @ W matmul.
     """
 
-    def __init__(self, cfg: MelConfig = MelConfig(), device: torch.device | str = "cpu"):
+    def __init__(self, cfg: MelConfig = MelConfig(), device: torch.device | str | None = None):
+        """`device=None` is the GPU (RuntimeError without one); pass "cpu"
+        to run on the CPU."""
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         win = hann_window(cfg.win_length, cfg.window_periodic).astype(np.float64)
         off = (cfg.n_fft - cfg.win_length) // 2
         f = np.arange(cfg.n_freq_bins, dtype=np.float64)

@@ -9,6 +9,9 @@ and maps each to a torch `state_dict` key and layout:
 - flax Conv1d `kernel [k, in/g, out]`       -> `weight [out, in/g, k]`
 - flax Conv2d `kernel [kh, kw, in/g, out]`  -> `weight [out, in/g, kh, kw]`
 - flax LayerNorm `scale`                    -> `weight`
+- JAX `Int8Dense` `kernel_q [in, out]` int8 -> `weight_q [out, in]` int8
+  (K contiguous, the layout the int8 kernel reads), `kernel_scale [1, out]`
+  f32 -> `weight_scale [out]`
 - everything else (`bias`, `bn_scale`/`bn_bias`, `pos_bias_u`/`pos_bias_v`,
   `embedding`) keeps its name and layout.
 
@@ -41,6 +44,12 @@ def _torch_key_and_value(flax_key: str, value: np.ndarray) -> tuple[str, np.ndar
         else:
             raise ValueError(f"unsupported kernel rank {value.ndim} at {flax_key}")
         parts[-1] = "weight"
+    elif leaf == "kernel_q":
+        value = value.T
+        parts[-1] = "weight_q"
+    elif leaf == "kernel_scale":
+        value = value.reshape(-1)
+        parts[-1] = "weight_scale"
     elif leaf == "scale":
         parts[-1] = "weight"
     return ".".join(parts), np.array(value, order="C")  # a writable copy
@@ -75,9 +84,10 @@ def load_npz(path: str | Path) -> dict[str, np.ndarray]:
         return from_jax_params({k: data[k] for k in data.files})
 
 
-def load_state(module: nn.Module, state: Mapping[str, np.ndarray]) -> None:
-    """Copy `state` into `module` in place, casting to each parameter's dtype
-    and device. Raises ValueError on a missing, extra or mis-shaped key."""
+def load_state(module: nn.Module, state: Mapping[str, np.ndarray | torch.Tensor]) -> None:
+    """Copy `state` (numpy arrays or tensors) into `module` in place, casting
+    to each entry's dtype and device. Raises ValueError on a missing, extra or
+    mis-shaped key."""
     own = module.state_dict()
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))
@@ -93,4 +103,4 @@ def load_state(module: nn.Module, state: Mapping[str, np.ndarray]) -> None:
             )
     with torch.no_grad():
         for key, target in own.items():
-            target.copy_(torch.from_numpy(np.asarray(state[key])))
+            target.copy_(torch.as_tensor(state[key]))

@@ -45,7 +45,8 @@ def utterances():
 @pytest.fixture(scope="module")
 def managers():
     jax_models = JaxAsrModels.load("test-tiny", checkpoint_dir=CKPT, allow_random_init=False)
-    port_models = AsrModels.load("test-tiny", checkpoint_dir=CKPT, allow_random_init=False)
+    port_models = AsrModels.load("test-tiny", checkpoint_dir=CKPT, device="cpu",
+                                 allow_random_init=False)
     return (JaxAsrManager(jax_models, JaxASRConfig(parallel_chunk_batch=2)),
             AsrManager(port_models, ASRConfig(parallel_chunk_batch=2)))
 
@@ -129,3 +130,19 @@ def test_chunked_path_refuses_a_carried_state(managers, utterances):
     _, port_mgr = managers
     with pytest.raises(ValueError, match="decoder_state"):
         port_mgr.transcribe(utterances[40][1], decoder_state=object())
+
+
+def test_entry_points_run_on_the_gpu_unless_told_otherwise(monkeypatch):
+    """With no `device`, `AsrModels.load` and `MelFrontend` take the GPU; with
+    none present they raise, naming device="cpu", instead of running on the
+    CPU unasked."""
+    from fluidaudio_tpu_torch.ops.mel import MelConfig, MelFrontend
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        AsrModels.load("test-tiny", checkpoint_dir=CKPT, allow_random_init=False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        AsrModels.load("test-tiny", allow_random_init=True, quantization="int8")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        MelFrontend(MelConfig())
+    assert MelFrontend(MelConfig(), device="cpu").device == torch.device("cpu")

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel and its on-card path (needs an NVIDIA GPU).
+"""The port's CUDA kernels and their on-card paths (needs an NVIDIA GPU).
 
 Every test here is marked `cuda` and skips without a card. The file imports
 no JAX, so it also runs on a machine without it, without the suite's
@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from fluidaudio_tpu_torch.ops import attention as attn
+from fluidaudio_tpu_torch.ops import int8_matmul as i8
+from fluidaudio_tpu_torch.ops import quant
 
 pytestmark = pytest.mark.cuda
 
@@ -111,7 +113,8 @@ def test_trained_fixture_encoder_and_transcript_match_cpu(cuda):
 
     on_card = AsrModels.load("test-tiny", checkpoint_dir=TRAINED_ASR, device=cuda,
                              allow_random_init=False)
-    on_cpu = AsrModels.load("test-tiny", checkpoint_dir=TRAINED_ASR, allow_random_init=False)
+    on_cpu = AsrModels.load("test-tiny", checkpoint_dir=TRAINED_ASR, device="cpu",
+                            allow_random_init=False)
     rs = np.random.RandomState(12345)
     ids = rs.randint(0, tc.N_WORDS, size=5)
     audio = tc.make_utterance(ids, rs)
@@ -129,3 +132,104 @@ def test_trained_fixture_encoder_and_transcript_match_cpu(cuda):
     torch.testing.assert_close(enc_g.cpu(), enc_c, atol=1e-3, rtol=1e-3)
     text = AsrManager(on_card).transcribe(audio).text
     assert text == AsrManager(on_cpu).transcribe(audio).text == tc.transcript_text(ids)
+
+
+# ------------------------------------------------------------ int8 matmul
+
+
+def _int8_inputs(M, K, N, with_bias, x_dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(M, K, generator=g, device=device)
+         * torch.rand(M, 1, generator=g, device=device) * 4).to(x_dtype)
+    wq, ws = quant.quantize_cols(torch.randn(K, N, generator=g, device=device) * 0.05)
+    bias = torch.randn(N, generator=g, device=device) if with_bias else None
+    return x, wq.T.contiguous(), ws.reshape(-1), bias
+
+
+@pytest.mark.parametrize("M,K,N,with_bias,x_dtype,out_dtype", [
+    (752, 1024, 4096, True, torch.bfloat16, torch.bfloat16),  # v3 fc1 on 4 x 188 frames
+    (752, 4096, 1024, True, torch.bfloat16, torch.bfloat16),  # v3 fc2
+    (375, 1024, 1024, False, torch.bfloat16, torch.bfloat16),  # v3 pos, 2T-1 rows, no bias
+    (37, 128, 130, False, torch.float32, torch.float32),  # tests/test_quant_pallas.py
+    (100, 256, 192, True, torch.float32, torch.float32),
+    (65, 48, 129, True, torch.bfloat16, torch.float32),  # K tail in its tile, odd N
+    (1, 16, 1, True, torch.float32, torch.bfloat16),
+])
+def test_int8_kernel_matches_plain_bit_for_bit(cuda, M, K, N, with_bias, x_dtype, out_dtype):
+    """The kernel rounds where the plain version does (IEEE quotient, half
+    to even, exact int32 sum, separate products and sum), so the outputs
+    are equal, bit for bit."""
+    x, wq, ws, bias = _int8_inputs(M, K, N, with_bias, x_dtype, cuda)
+    before = i8.int8_matmul_fused.launches
+    got = i8.int8_matmul_fused(x, wq, ws, bias, out_dtype)
+    torch.cuda.synchronize()
+    assert i8.int8_matmul_fused.launches == before + 1
+    want = i8.int8_matmul_fused_plain(x, wq, ws, bias, out_dtype)
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bad", ["k_not_16", "float16", "noncontiguous", "misaligned",
+                                 "f64_scale"])
+def test_int8_wrapper_rejects_what_the_kernel_does_not_take(cuda, bad):
+    M, K, N = 8, 40 if bad == "k_not_16" else 32, 16
+    x, wq, ws, bias = _int8_inputs(M, K, N, True, torch.float32, cuda)
+    if bad == "float16":
+        x = x.half()
+    elif bad == "noncontiguous":
+        x = torch.randn(K, M, device=cuda).T
+    elif bad == "misaligned":
+        x = torch.zeros(M * K + 1, device=cuda)[1:].view(M, K)
+    elif bad == "f64_scale":
+        ws = ws.double()
+    with pytest.raises(ValueError):
+        i8.int8_matmul_fused(x, wq, ws, bias)
+
+
+def test_int8_trained_fixture_launches_per_layer_and_matches_cpu(cuda):
+    """The trained test-tiny model with quantization="int8" on the card: 23
+    int8 launches per encoder call (11 per block x 2 + the subsampling
+    projection), the encoder within relative L2 1e-2 of the CPU run and the
+    CPU's transcript. The mel and f32 convolutions sum in another order on
+    the card, which can flip an int8 code at a .5 boundary; the trained
+    64-wide fixture carries such a flip through both blocks (2.5e-3 seen on
+    an H100, as between JAX op by op and jitted on the CPU)."""
+    from fluidaudio_tpu_torch.asr.manager import AsrManager
+    from fluidaudio_tpu_torch.models.zoo import AsrModels
+    from fluidaudio_tpu_torch.train import tiny_corpus as tc
+
+    load = lambda dev: AsrModels.load("test-tiny", checkpoint_dir=TRAINED_ASR, device=dev,
+                                      allow_random_init=False, quantization="int8")
+    on_card, on_cpu = load(cuda), load("cpu")
+    rs = np.random.RandomState(12345)
+    ids = rs.randint(0, tc.N_WORDS, size=5)
+    audio = tc.make_utterance(ids, rs)
+    x = torch.from_numpy(audio)[None]
+    n = torch.tensor([audio.size], dtype=torch.int32)
+    enc_c, _ = on_cpu.encoder(*on_cpu.mel(x, n))
+    before = i8.int8_matmul_fused.launches
+    enc_g, _ = on_card.encoder(*on_card.mel(x.to(cuda), n.to(cuda)))
+    torch.cuda.synchronize()
+    assert i8.int8_matmul_fused.launches - before == 11 * 2 + 1
+    rel = (torch.linalg.vector_norm(enc_g.cpu() - enc_c) / torch.linalg.vector_norm(enc_c))
+    assert float(rel) <= 1e-2
+    text = AsrManager(on_card).transcribe(audio).text
+    assert text == AsrManager(on_cpu).transcribe(audio).text
+
+
+def test_int8_linear_on_the_card_launches_once_per_call(cuda):
+    layer = quant.Int8Linear(64, 48, out_dtype=torch.bfloat16)
+    state = quant.quantize_linear_state({"weight": torch.randn(48, 64) * 0.1,
+                                         "bias": torch.randn(48)})
+    layer.load_state_dict({k: v for k, v in state.items()})
+    layer = layer.to(cuda, torch.bfloat16)
+    assert layer.weight_scale.dtype == torch.float32 and layer.bias.dtype == torch.float32
+    x = torch.randn(3, 7, 64, device=cuda).bfloat16()
+    before = i8.int8_matmul_fused.launches
+    got = layer(x)
+    torch.cuda.synchronize()
+    assert i8.int8_matmul_fused.launches == before + 1 and got.shape == (3, 7, 48)
+    want = i8.int8_matmul_fused_plain(x.reshape(-1, 64), layer.weight_q, layer.weight_scale,
+                                      layer.bias, torch.bfloat16).reshape(3, 7, 48)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -35,8 +35,8 @@ def audio():
 
 
 def _port(cfg, audio):
-    mel, lens = port.MelFrontend(cfg)(torch.from_numpy(audio), torch.from_numpy(LENGTHS),
-                                      torch.from_numpy(LAST))
+    mel, lens = port.MelFrontend(cfg, device="cpu")(
+        torch.from_numpy(audio), torch.from_numpy(LENGTHS), torch.from_numpy(LAST))
     return mel.numpy(), lens.numpy()
 
 
@@ -92,7 +92,8 @@ def test_single_valid_frame_clamps_n_to_two():
     x = np.random.RandomState(3).randn(1, 800).astype(np.float32) * 0.1
     lens = np.array([100], np.int32)  # 100 // 160 + 1 = 1 frame
     want, _ = JaxMel(cfg, use_fft=False)(jnp.asarray(x), jnp.asarray(lens))
-    got, got_len = port.MelFrontend(cfg)(torch.from_numpy(x), torch.from_numpy(lens))
+    got, got_len = port.MelFrontend(cfg, device="cpu")(torch.from_numpy(x),
+                                                       torch.from_numpy(lens))
     assert int(got_len[0]) == 1
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-3, rtol=0)
@@ -101,6 +102,6 @@ def test_single_valid_frame_clamps_n_to_two():
 def test_int_lengths_default_to_full_rows_and_1d_input():
     cfg = MelConfig()
     x = np.random.RandomState(4).randn(4000).astype(np.float32) * 0.1
-    got, got_len = port.MelFrontend(cfg)(torch.from_numpy(x))
+    got, got_len = port.MelFrontend(cfg, device="cpu")(torch.from_numpy(x))
     assert got.shape == (1, 128, cfg.num_frames(4000))
     assert int(got_len[0]) == cfg.num_frames(4000)
