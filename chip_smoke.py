@@ -7,17 +7,20 @@ Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and `nvcc`;
 there is no CPU fallback. It imports nothing of JAX or of the JAX package.
 Phases, one line each; any failure raises and the final line is not printed:
 
-  1. device: the card's name and power limit (nvidia-smi), and the time to
+  1. device: the card's name and power limit (nvidia-smi), the time to
      build both kernels from `fluidaudio_tpu_torch/csrc/` (one nvcc each, in
-     parallel);
+     parallel), and what ptxas reports of the int8 GEMM (registers, spills,
+     shared memory);
   2. the rel-pos attention kernel against its plain PyTorch version on the
      card at the v3 shapes (B=4, H=8, T=188, Dh=128, lengths
      [188,100,17,188], bf16; max abs error on valid rows below 0.06) and on
      the shift-only probe;
   3. the int8 matmul kernel against its plain version at the v3 shapes
      (752 x 1024 x 4096 and 752 x 4096 x 1024 with bias, the 375-row pos
-     projection without) and the JAX test shapes, bit for bit, one launch
-     counted per call;
+     projection without), the JAX test shapes, and the B=128 encoder shapes
+     (24,064 rows at K x N = 1024 x 4096, 4096 x 1024, 1024 x 1024 and
+     1024 x 2048, and a ragged 24,065 rows whose last M tile is one row),
+     bit for bit, one launch counted per call;
   4. the trained `test-tiny` fixture on the card, f32 and
      quantization="int8": 5- and 40-word utterances, WER printed (gate 0.02
      for f32) and the same text as the port on the CPU;
@@ -32,8 +35,10 @@ Phases, one line each; any failure raises and the final line is not printed:
      the plain int8 matmul on one 15 s x 4 batch; the cosine between the
      int8 and bf16 encoders on the same weights (information only);
   7. timing (CUDA events, card name and power limit on every line): both
-     kernels against their plain versions (and, for context only, bf16
-     `F.linear` and `torch._int_mm`, which are not the same function), the
+     kernels against their plain versions, the int8 kernel at each of the
+     five distinct shapes of a B=128 encoder call beside its bound and its
+     launches per call (and, for context only, bf16 `F.linear` and
+     `torch._int_mm`, which are not the same function), the
      v3 encoder at B=128 in bf16 and int8, and the bf16 and int8
      `build_pipeline(128)` RTFx on 15 s windows with the joint blank bias
      calibrated to 9-12 tokens/s of audio.
@@ -66,6 +71,19 @@ INT8_LAYERS_PER_BLOCK = 11  # ffn{1,2}_fc{1,2}, mhsa.{q,k,v,pos,out}, conv.point
 INT8_SHAPES = [(752, 1024, 4096, True, torch.bfloat16), (752, 4096, 1024, True, torch.bfloat16),
                (375, 1024, 1024, False, torch.bfloat16), (37, 128, 130, False, torch.float32),
                (100, 256, 192, True, torch.float32)]
+ENCODER_ROWS = 128 * 188  # a B=128 batch of 15 s windows, 188 frames each
+# the five distinct int8 shapes of one v3 encoder call at B=128, (name, M, K, N, bias,
+# launches per call): 24 blocks x (ffn1 + ffn2 fc1, fc2 + the subsampling projection,
+# q/k/v/out + conv pointwise2, conv pointwise1, the 2T-1-row pos projection)
+INT8_ENCODER_SHAPES = [("fc1", ENCODER_ROWS, 1024, 4096, True, 48),
+                       ("fc2", ENCODER_ROWS, 4096, 1024, True, 49),
+                       ("q/k/v/out/pointwise2", ENCODER_ROWS, 1024, 1024, True, 120),
+                       ("pointwise1", ENCODER_ROWS, 1024, 2048, True, 24),
+                       ("pos", 375, 1024, 1024, False, 24)]
+# bit-equal at the real sizes: many persistent tiles per block, K loops that wrap the ring
+INT8_ENCODER_PARITY = [(M, K, N, bias, torch.bfloat16)
+                       for _, M, K, N, bias, _ in INT8_ENCODER_SHAPES[:4]]
+INT8_ENCODER_PARITY.append((ENCODER_ROWS + 1, 4096, 1024, True, torch.bfloat16))
 # one NVIDIA H100 SXM (data sheet, dense): HBM rate, bf16 and int8 tensor-core peaks
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -166,7 +184,7 @@ def set_int8_matmul(encoder, fn) -> None:
 # ---------------------------------------------------------------- phases
 
 
-def phase_device(attn, i8) -> tuple[str, dict[str, float]]:
+def phase_device(attn, i8) -> str:
     from fluidaudio_tpu_torch.ops import build
 
     smi = subprocess.run(
@@ -174,13 +192,30 @@ def phase_device(attn, i8) -> tuple[str, dict[str, float]]:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
-    build_s = build.build(attn.KERNEL_SOURCE, i8.KERNEL_SOURCE)
+    built = build.build(attn.KERNEL_SOURCE, i8.KERNEL_SOURCE)
     attn.load_library()
-    i8.load_library()
-    builds = " | ".join(f"{name} {sec:.2f} s" for name, sec in build_s.items())
+    lib = i8.load_library()
+    builds = " | ".join(f"{name} {sec:.2f} s" for name, (sec, _) in built.items())
     print(f"phase 1 device: {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| kernel builds (parallel nvcc): {builds}")
-    return smi, build_s
+    report = ptxas_report(built[i8.KERNEL_SOURCE.name][1], "int8_gemm_dequant")
+    print(f"phase 1 int8_gemm_dequant (nvcc -Xptxas -v): {report or 'built before this run'} | "
+          f"dynamic shared memory {lib.int8_gemm_dequant_smem_bytes()} B")
+    return smi
+
+
+def ptxas_report(log: str, kernel: str) -> str:
+    """What ptxas printed of each instance of `kernel` (registers, static
+    shared memory, spills), one instance per '|', named by its output type."""
+    parts, current = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            current = kernel in line
+            if current:
+                parts.append([f"{'bf16' if 'bfloat16' in line else 'f32'} out:"])
+        elif current and ("spill" in line or "Used" in line):
+            parts[-1].append(line.replace("ptxas info    :", "").strip())
+    return " | ".join(" ".join(p) for p in parts)
 
 
 def phase_kernel_parity(attn, device) -> float:
@@ -217,7 +252,7 @@ def phase_int8_parity(i8, device) -> float:
     version does (IEEE quotient, half to even, exact integer sum, separate
     products and sum), so the tolerance is 0."""
     parts, worst = [], 0.0
-    for idx, (M, K, N, with_bias, dtype) in enumerate(INT8_SHAPES):
+    for idx, (M, K, N, with_bias, dtype) in enumerate(INT8_SHAPES + INT8_ENCODER_PARITY):
         x, wq, ws, bias = int8_inputs(M, K, N, with_bias, dtype, device, seed=10 + idx)
         before = i8.int8_matmul_fused.launches
         got = i8.int8_matmul_fused(x, wq, ws, bias, dtype)
@@ -429,33 +464,44 @@ def time_attention(attn, device, smi: str, batch: int = 128) -> dict:
             "bound_by": bound_by, "library_ms": None}
 
 
-def time_int8(i8, device, smi: str, rows: int = 128 * 188) -> dict:
-    """The FFN shapes of a B=128 encoder call. bf16 `F.linear` and
-    `torch._int_mm` (the int8 product alone) are context, not the same
-    function; no single PyTorch call quantises, multiplies and dequantises."""
-    out = {}
-    for K, N in ((1024, 4096), (4096, 1024)):
-        x, wq, ws, bias = int8_inputs(rows, K, N, True, torch.bfloat16, device, seed=K)
+def time_int8(i8, device, smi: str) -> dict:
+    """The five distinct int8 shapes of a B=128 encoder call, each beside its
+    bound and its launches per call, in turns (plain, kernel, kernel,
+    plain). bf16 `F.linear` and `torch._int_mm` (the int8 product alone)
+    are context, not the same function; no single PyTorch call quantises,
+    multiplies and dequantises. -> the fc1 shape's record."""
+    out, per_call, bound_per_call = {}, 0.0, 0.0
+    check(sum(n for *_, n in INT8_ENCODER_SHAPES) == INT8_LAYERS_PER_BLOCK * 24 + 1,
+          "the encoder shapes must cover all 265 launches")
+    for name, M, K, N, with_bias, launches in INT8_ENCODER_SHAPES:
+        x, wq, ws, bias = int8_inputs(M, K, N, with_bias, torch.bfloat16, device, seed=K + N)
         kernel = lambda: i8.int8_matmul_fused(x, wq, ws, bias, torch.bfloat16)
         plain = lambda: i8.int8_matmul_fused_plain(x, wq, ws, bias, torch.bfloat16)
         p1, k1, k2, p2 = (cuda_ms(plain, 5), cuda_ms(kernel), cuda_ms(kernel),
                           cuda_ms(plain, 5))
         w_bf16 = (wq.float() * ws[:, None]).bfloat16()
-        linear_ms = cuda_ms(lambda: torch.nn.functional.linear(x, w_bf16, bias.bfloat16()))
+        b_bf16 = None if bias is None else bias.bfloat16()
+        linear_ms = cuda_ms(lambda: torch.nn.functional.linear(x, w_bf16, b_bf16))
         xq = i8.quantize_rows(x)[0]
         try:
             int_mm = f"{cuda_ms(lambda: torch._int_mm(xq, wq.T)):.4f} ms"
         except RuntimeError as e:  # context only: the port never calls it
             int_mm = f"not measured ({str(e).splitlines()[0][:80]})"
-        nbytes, ops = int8_cost(rows, K, N, True, 2, 2)
+        nbytes, ops = int8_cost(M, K, N, with_bias, 2, 2)
         bound_ms, bound_by = bound(nbytes, ops, INT8_OPS)
-        print(f"timing [{smi}] int8_matmul_fused M={rows} K={K} N={N} bf16 +bias: kernel "
+        per_call += launches * min(k1, k2)
+        bound_per_call += launches * bound_ms
+        print(f"timing [{smi}] int8_matmul_fused {name} M={M} K={K} N={N} bf16"
+              f"{' +bias' if with_bias else ''}, {launches} launches per encoder call: kernel "
               f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}) | context, not the same function: bf16 F.linear "
               f"{linear_ms:.4f} ms, torch._int_mm {int_mm}")
         if not out:  # the fc1 shape goes into the kernel record
             out = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound_ms,
                    "bound_by": bound_by, "library_ms": None}
+        del x, wq, ws, bias, xq, w_bf16
+    print(f"timing [{smi}] int8_matmul_fused per B=128 encoder call (sum of launches x best "
+          f"time above): {per_call:.3f} ms against a summed bound of {bound_per_call:.3f} ms")
     return out
 
 
@@ -510,7 +556,7 @@ def main() -> int:
     from fluidaudio_tpu_torch.ops import int8_matmul as i8
 
     device = torch.device("cuda", 0)
-    smi, _ = phase_device(attn, i8)
+    smi = phase_device(attn, i8)
     attn_err = phase_kernel_parity(attn, device)
     int8_err = phase_int8_parity(i8, device)
     phase_trained_fixture(device)

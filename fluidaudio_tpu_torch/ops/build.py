@@ -4,7 +4,9 @@ Each source under `csrc/` compiles on its own into a shared library with a
 plain C interface, `_build/lib<stem>_<hash>.so`, keyed by the hash of the
 source and the flags, so an edited source builds anew and an unchanged one
 is reused. `build(...)` starts one nvcc per source that is not built yet,
-all at once, and waits for every one of them. Nothing builds at import.
+all at once, and waits for every one of them, and returns what ptxas
+reported of each kernel (registers, shared memory, spills). Nothing builds
+at import.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # no --use_fast_math: the int8 kernel's quantisation relies on IEEE division
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 def _nvcc() -> str:
@@ -39,12 +41,13 @@ def library_path(source: Path) -> Path:
     return BUILD_DIR / f"lib{source.stem}_{tag}.so"
 
 
-def build(*sources: Path) -> dict[str, float]:
+def build(*sources: Path) -> dict[str, tuple[float, str]]:
     """Compile every source whose library is missing, one nvcc each, all
-    started together. -> {source name: seconds until its library was ready}
-    (0.0 for one already built). Raises if any nvcc fails."""
+    started together. -> {source name: (seconds until its library was
+    ready, nvcc's ptxas report)}, (0.0, "") for one already built. Raises if
+    any nvcc fails."""
     t0 = time.perf_counter()
-    seconds = {s.name: 0.0 for s in sources}
+    built = {s.name: (0.0, "") for s in sources}
     running = []
     for src in sources:
         lib = library_path(src)
@@ -58,14 +61,14 @@ def build(*sources: Path) -> dict[str, float]:
     failures = []
     for src, lib, tmp, cmd, proc in running:
         _, err = proc.communicate()
-        seconds[src.name] = time.perf_counter() - t0
+        built[src.name] = (time.perf_counter() - t0, err)
         if proc.returncode != 0:
             failures.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
         else:
             os.replace(tmp, lib)
     if failures:
         raise RuntimeError("\n".join(failures))
-    return seconds
+    return built
 
 
 @functools.cache

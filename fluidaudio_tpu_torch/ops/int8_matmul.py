@@ -27,6 +27,9 @@ import torch
 from fluidaudio_tpu_torch.ops import build
 
 KERNEL_SOURCE = build.CSRC / "int8_matmul_fused.cu"
+INT32_MAX = 2**31 - 1
+# |sum_k xq * wq| <= K * 127^2 must fit the kernel's int32 accumulators
+MAX_K = INT32_MAX // 127**2 // 16 * 16
 
 
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -60,6 +63,8 @@ def load_library() -> ctypes.CDLL:
     fn = lib.int8_matmul_fused_launch
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.int8_gemm_dequant_smem_bytes.argtypes = []
+    lib.int8_gemm_dequant_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -104,11 +109,13 @@ def int8_matmul_fused(x, wq, ws, bias=None, out_dtype=None) -> torch.Tensor:
             raise ValueError(f"{name} must be contiguous")
     if M == 0 or K % 16:
         raise ValueError(f"kernel takes M >= 1 and K a multiple of 16, got M={M} K={K}")
-    if -(-M // 64) > 65535:
-        raise ValueError(f"M={M} exceeds the kernel's grid (at most 65535 x 64 rows)")
+    if K > MAX_K or max(M, N) > INT32_MAX:
+        raise ValueError(f"kernel takes K <= {MAX_K} (an int32 sum that cannot overflow) and "
+                         f"M, N < 2^31 (int32 indices and TMA coordinates), got M={M} N={N} "
+                         f"K={K}")
     for name, t in (("x", x), ("wq", wq)):
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary (vector loads)")
+            raise ValueError(f"{name} must start on a 16-byte boundary (vector and TMA loads)")
     xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
     s_row = torch.empty((M,), dtype=torch.float32, device=x.device)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)

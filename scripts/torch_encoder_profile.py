@@ -12,8 +12,9 @@ top kernels, the total device time, the host wall time of the call, and the
 device's idle share over the call's span. Beside it, each hand-written
 kernel's launches and summed bound in that call, from the shapes the layers
 see (bytes over the HBM rate or operations over the peak, as `chip_smoke.py`
-reckons them). Prints the card's name and power limit first. Needs one
-NVIDIA GPU; imports nothing of JAX.
+reckons them), and for the int8 encoder each layer shape's GEMM and
+row-quantise device time. Prints the card's name and power limit first.
+Needs one NVIDIA GPU; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import argparse
 import subprocess
 import sys
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 from pathlib import Path
 
 import numpy as np
@@ -67,11 +68,14 @@ def busy_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-def kernel_bounds(models, mel, mel_len) -> dict[str, tuple[int, float, float, float]]:
+def kernel_bounds(models, mel, mel_len
+                  ) -> tuple[dict[str, tuple[int, float, float, float]], list[tuple[int, int, int]]]:
     """Run one encoder call with hooks on the layers that launch our kernels
-    -> {kernel: (launches, bound ms, bytes ms, operations ms)}, each summed
-    over the launches (every row full length, so every key counts)."""
+    -> ({kernel: (launches, bound ms, bytes ms, operations ms)}, each summed
+    over the launches (every row full length, so every key counts); the
+    (M, K, N) of every int8 layer in call order)."""
     shapes = {"relpos_attention": [], "int8_matmul_fused": []}
+    int8_shapes = []
 
     def on_attention(mod, args):
         B, T, d = args[0].shape
@@ -84,6 +88,7 @@ def kernel_bounds(models, mel, mel_len) -> dict[str, tuple[int, float, float, fl
         cost = int8_cost(x.numel() // K, K, mod.out_features, mod.bias is not None,
                          x.element_size(), torch.finfo(mod.out_dtype).bits // 8)
         shapes["int8_matmul_fused"].append((*cost, INT8_OPS))
+        int8_shapes.append((x.numel() // K, K, mod.out_features))
 
     hooks = [m.register_forward_pre_hook(on_attention if isinstance(m, RelPosMHSA) else on_int8)
              for m in models.encoder.modules() if isinstance(m, (RelPosMHSA, Int8Linear))]
@@ -99,7 +104,26 @@ def kernel_bounds(models, mel, mel_len) -> dict[str, tuple[int, float, float, fl
                          sum(bound(b, o, peak)[0] for b, o, peak in launches),
                          sum(b / HBM_BYTES_PER_S * 1e3 for b, _, _ in launches),
                          sum(o / peak * 1e3 for _, o, peak in launches))
-    return out
+    return out, int8_shapes
+
+
+def print_int8_by_shape(kernels, shapes: list[tuple[int, int, int]]) -> None:
+    """Device time of the int8 kernel's two launches by layer shape: the
+    profiled launches, in start order, belong to the int8 layers in call
+    order."""
+    per = defaultdict(lambda: defaultdict(float))
+    for key in ("int8_gemm_dequant", "quantize_rows"):
+        events = sorted((e for e in kernels if key in e.name), key=lambda e: e.time_range.start)
+        if len(events) != len(shapes):
+            raise SystemExit(f"{len(events)} {key} launches for {len(shapes)} int8 layers")
+        for shape, e in zip(shapes, events):
+            per[shape][key] += e.time_range.elapsed_us()
+    for (M, K, N), n in Counter(shapes).items():
+        t = per[(M, K, N)]
+        print(f"  int8   M={M} K={K} N={N}: {n} launches, GEMM "
+              f"{t['int8_gemm_dequant'] / n:.1f} us each ({t['int8_gemm_dequant'] / 1e3:.3f} ms; "
+              f"operations alone {2 * M * K * N / INT8_OPS * 1e6:.1f} us), row quantise "
+              f"{t['quantize_rows'] / n:.1f} us each ({t['quantize_rows'] / 1e3:.3f} ms)")
 
 
 def profile_encoder(models, mel, mel_len, label: str, smi: str) -> None:
@@ -131,9 +155,12 @@ def profile_encoder(models, mel, mel_len, label: str, smi: str) -> None:
         print(f"  group {g:28s} {ms:9.3f} ms  {ms / device_ms:6.1%}")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  kernel {ms:9.3f} ms x{count[name]:<5d} {name[:90]}")
-    for name, (n, bound_ms, bytes_ms, ops_ms) in kernel_bounds(models, mel, mel_len).items():
+    bounds, int8_shapes = kernel_bounds(models, mel, mel_len)
+    for name, (n, bound_ms, bytes_ms, ops_ms) in bounds.items():
         print(f"  bound  {name}: {n} launches, summed bound {bound_ms:.3f} ms "
               f"(bytes alone {bytes_ms:.3f} ms, operations alone {ops_ms:.3f} ms)")
+    if int8_shapes:
+        print_int8_by_shape(kernels, int8_shapes)
 
 
 def main() -> int:

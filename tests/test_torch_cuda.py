@@ -154,6 +154,10 @@ def _int8_inputs(M, K, N, with_bias, x_dtype, device, seed=0):
     (100, 256, 192, True, torch.float32, torch.float32),
     (65, 48, 129, True, torch.bfloat16, torch.float32),  # K tail in its tile, odd N
     (1, 16, 1, True, torch.float32, torch.bfloat16),
+    (300, 64, 1024, True, torch.bfloat16, torch.bfloat16),  # the test-tiny fixture's K
+    (24064, 4096, 1024, True, torch.bfloat16, torch.bfloat16),  # v3 fc2 at B=128: many tiles
+    (24065, 4096, 1024, True, torch.bfloat16, torch.bfloat16),  # last M tile holds one row
+    (8, i8.MAX_K, 40, False, torch.float32, torch.float32),  # the largest K: 1,041 K steps
 ])
 def test_int8_kernel_matches_plain_bit_for_bit(cuda, M, K, N, with_bias, x_dtype, out_dtype):
     """The kernel rounds where the plain version does (IEEE quotient, half
@@ -171,9 +175,10 @@ def test_int8_kernel_matches_plain_bit_for_bit(cuda, M, K, N, with_bias, x_dtype
 
 
 @pytest.mark.parametrize("bad", ["k_not_16", "float16", "noncontiguous", "misaligned",
-                                 "f64_scale"])
+                                 "f64_scale", "k_past_int32_sum"])
 def test_int8_wrapper_rejects_what_the_kernel_does_not_take(cuda, bad):
-    M, K, N = 8, 40 if bad == "k_not_16" else 32, 16
+    K = {"k_not_16": 40, "k_past_int32_sum": i8.MAX_K + 16}.get(bad, 32)
+    M, N = 8, 16
     x, wq, ws, bias = _int8_inputs(M, K, N, True, torch.float32, cuda)
     if bad == "float16":
         x = x.half()

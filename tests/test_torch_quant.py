@@ -197,7 +197,10 @@ def test_kernel_module_imports_without_cuda():
     assert kmod.load_library.cache_info().currsize == 0
     assert kmod.KERNEL_SOURCE.exists()
     src = kmod.KERNEL_SOURCE.read_text()
-    assert "int8_matmul_fused_launch" in src and "mma.sync.aligned.m16n8k32" in src
+    assert "int8_matmul_fused_launch" in src
+    # one GEMM: wgmma on s8 operands that TMA brings into an mbarrier-guarded ring
+    assert ".s32.s8.s8" in src and "wgmma.mma_async" in src and "mma.sync" not in src
+    assert "cp.async.bulk.tensor" in src and "mbarrier.try_wait" in src
 
 
 # ------------------------------------------------------- weights and layers
