@@ -9,12 +9,14 @@ Phases, one line each; any failure raises and the final line is not printed:
 
   1. device: the card's name and power limit (nvidia-smi), the time to
      build both kernels from `fluidaudio_tpu_torch/csrc/` (one nvcc each, in
-     parallel), and what ptxas reports of the int8 GEMM (registers, spills,
-     shared memory);
+     parallel), and what ptxas reports of the attention kernel and the int8
+     GEMM (registers, spills, shared memory);
   2. the rel-pos attention kernel against its plain PyTorch version on the
      card at the v3 shapes (B=4, H=8, T=188, Dh=128, lengths
-     [188,100,17,188], bf16; max abs error on valid rows below 0.06) and on
-     the shift-only probe;
+     [188,100,17,188], bf16; max abs error on valid rows below 0.06), in
+     both call forms: contiguous inputs with f32 out, and the encoder's
+     strided views with `out=` a bf16 view, which must equal the f32 result
+     rounded to bf16 bit for bit; and on the shift-only probe;
   3. the int8 matmul kernel against its plain version at the v3 shapes
      (752 x 1024 x 4096 and 752 x 4096 x 1024 with bias, the 375-row pos
      projection without), the JAX test shapes, and the B=128 encoder shapes
@@ -35,7 +37,9 @@ Phases, one line each; any failure raises and the final line is not printed:
      the plain int8 matmul on one 15 s x 4 batch; the cosine between the
      int8 and bf16 encoders on the same weights (information only);
   7. timing (CUDA events, card name and power limit on every line): both
-     kernels against their plain versions, the int8 kernel at each of the
+     kernels against their plain versions, the attention kernel in both
+     call forms at B=128 beside each bound (and, for context only, SDPA
+     at the same q/k/v shape without the position term), the int8 kernel at each of the
      five distinct shapes of a B=128 encoder call beside its bound and its
      launches per call (and, for context only, bf16 `F.linear` and
      `torch._int_mm`, which are not the same function), the
@@ -51,6 +55,7 @@ launches on its main path, bound and times); the last line is
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -127,11 +132,11 @@ def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attention_cost(B: int, H: int, T: int, Dh: int) -> tuple[int, int]:
+def attention_cost(B: int, H: int, T: int, Dh: int, out_bytes: int) -> tuple[int, int]:
     """(bytes, bf16 operations) of one relpos_attention call with every row
     full length: q.k, the shifted q.p band and P.V over every key; bf16 in,
-    f32 out, each read or written once."""
-    nbytes = (4 * B * H * T * Dh + H * (2 * T - 1) * Dh) * 2 + B * 4 + B * H * T * Dh * 4
+    out in `out_bytes` per element, each read or written once."""
+    nbytes = (4 * B * H * T * Dh + H * (2 * T - 1) * Dh) * 2 + B * 4 + B * H * T * Dh * out_bytes
     return nbytes, 3 * 2 * B * H * T * T * Dh
 
 
@@ -143,11 +148,21 @@ def int8_cost(M: int, K: int, N: int, with_bias: bool, x_bytes: int, out_bytes: 
             2 * M * K * N)
 
 
-def attention_inputs(B, H, T, Dh, dtype, device, seed):
+def attention_inputs(B, H, T, Dh, dtype, device, seed, strided=False):
+    """qu, qw, k, v [B, H, T, Dh] and p [H, 2T-1, Dh]: contiguous, or (strided)
+    the views the encoder passes, of [B, T, H, Dh] and [2T-1, H, Dh] tensors."""
     g = torch.Generator(device=device).manual_seed(seed)
     rnd = lambda *shape: torch.randn(*shape, generator=g, device=device).to(dtype)
+    if strided:
+        return (*(rnd(B, T, H, Dh).transpose(1, 2) for _ in range(4)),
+                rnd(2 * T - 1, H, Dh).transpose(0, 1))
     return rnd(B, H, T, Dh), rnd(B, H, T, Dh), rnd(B, H, T, Dh), rnd(B, H, T, Dh), rnd(
         H, 2 * T - 1, Dh)
+
+
+def bf16_out(B, H, T, Dh, device) -> torch.Tensor:
+    """The encoder's `out=`: the [B, H, T, Dh] view of a [B, T, H, Dh] buffer."""
+    return torch.empty(B, T, H, Dh, dtype=torch.bfloat16, device=device).transpose(1, 2)
 
 
 def int8_inputs(M, K, N, with_bias, dtype, device, seed):
@@ -193,11 +208,16 @@ def phase_device(attn, i8) -> str:
     ).stdout.strip().splitlines()[0]
     print(smi)
     built = build.build(attn.KERNEL_SOURCE, i8.KERNEL_SOURCE)
-    attn.load_library()
+    attn_lib = attn.load_library()
     lib = i8.load_library()
     builds = " | ".join(f"{name} {sec:.2f} s" for name, (sec, _) in built.items())
     print(f"phase 1 device: {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| kernel builds (parallel nvcc): {builds}")
+    report = ptxas_report(built[attn.KERNEL_SOURCE.name][1], "relpos_attention_wgmma")
+    print(f"phase 1 relpos_attention_wgmma (nvcc -Xptxas -v): "
+          f"{report or 'built before this run'} | dynamic shared memory "
+          f"{attn_lib.relpos_attention_smem_bytes(64)} B (Dh <= 64), "
+          f"{attn_lib.relpos_attention_smem_bytes(128)} B (Dh 80-128)")
     report = ptxas_report(built[i8.KERNEL_SOURCE.name][1], "int8_gemm_dequant")
     print(f"phase 1 int8_gemm_dequant (nvcc -Xptxas -v): {report or 'built before this run'} | "
           f"dynamic shared memory {lib.int8_gemm_dequant_smem_bytes()} B")
@@ -206,28 +226,47 @@ def phase_device(attn, i8) -> str:
 
 def ptxas_report(log: str, kernel: str) -> str:
     """What ptxas printed of each instance of `kernel` (registers, static
-    shared memory, spills), one instance per '|', named by its output type."""
+    shared memory, spills), one instance per '|', named by its output type
+    (and its padded head width, where it has one)."""
     parts, current = [], False
     for line in log.splitlines():
         if "Compiling entry function" in line:
             current = kernel in line
             if current:
-                parts.append([f"{'bf16' if 'bfloat16' in line else 'f32'} out:"])
+                width = re.search(kernel + r"ILi(\d+)E", line)
+                parts.append([f"{f'Dh pad {width.group(1)}, ' if width else ''}"
+                              f"{'bf16' if 'bfloat16' in line else 'f32'} out:"])
         elif current and ("spill" in line or "Used" in line):
             parts[-1].append(line.replace("ptxas info    :", "").strip())
     return " | ".join(" ".join(p) for p in parts)
 
 
 def phase_kernel_parity(attn, device) -> float:
+    """Both call forms against the plain version on the same inputs; the
+    bf16 out of the strided form must be its own f32 out rounded to bf16."""
     lengths = [188, 100, 17, 188]
-    qu, qw, k, v, p = attention_inputs(4, 8, 188, 128, torch.bfloat16, device, seed=0)
+    B, H, T, Dh = 4, 8, 188, 128
     lens = torch.tensor(lengths, dtype=torch.int32, device=device)
-    got = attn.relpos_attention(qu, qw, k, v, p, lens, 188)
-    torch.cuda.synchronize()
-    want = attn.relpos_attention_plain(qu, qw, k, v, p, lens, 188)
-    err = valid_rows_err(got, want, lengths)
-    check(bool(torch.isfinite(got).all()), "kernel output not finite")
-    check(err < PARITY_TOL, f"kernel vs plain max abs err {err} >= {PARITY_TOL}")
+    errs = {}
+    for form in ("contiguous f32 out", "strided bf16 out"):
+        strided = form.startswith("strided")
+        qu, qw, k, v, p = attention_inputs(B, H, T, Dh, torch.bfloat16, device, seed=0,
+                                           strided=strided)
+        got = attn.relpos_attention(qu, qw, k, v, p, lens, T)
+        if strided:
+            f32 = got
+            got = attn.relpos_attention(qu, qw, k, v, p, lens, T, out=bf16_out(B, H, T, Dh, device))
+        torch.cuda.synchronize()
+        want = attn.relpos_attention_plain(qu, qw, k, v, p, lens, T)
+        check(bool(torch.isfinite(got).all()), f"{form}: kernel output not finite")
+        errs[form] = valid_rows_err(got.float(), want, lengths)
+        check(errs[form] < PARITY_TOL,
+              f"{form}: kernel vs plain max abs err {errs[form]} >= {PARITY_TOL}")
+        if strided:
+            check(torch.equal(got, f32.bfloat16()),
+                  f"{form}: {int((got != f32.bfloat16()).sum())} elements differ from the "
+                  "f32 out rounded to bf16")
+    err = max(errs.values())
 
     # shift-only probe: q.k = 0, peaked position scores expose a wrong XL index
     g = torch.Generator(device=device).manual_seed(2)
@@ -241,9 +280,10 @@ def phase_kernel_parity(attn, device) -> float:
     torch.cuda.synchronize()
     shift_err = (got1 - attn.relpos_attention_plain(z, qw1, z, v1, p1, lens1, T)).abs().max().item()
     check(shift_err < PARITY_TOL, f"shift-only probe err {shift_err}")
+    forms = " | ".join(f"{form} {e:.3e}" for form, e in errs.items())
     print(f"phase 2 attention kernel vs plain: B=4 H=8 T=188 Dh=128 bf16 lengths {lengths} "
-          f"max_abs_err(valid rows) {err:.3e} | shift-only probe {shift_err:.3e} "
-          f"| tol {PARITY_TOL}")
+          f"max_abs_err(valid rows): {forms} | strided bf16 out == f32 out rounded to bf16: "
+          f"bit-equal | shift-only probe {shift_err:.3e} | tol {PARITY_TOL}")
     return err
 
 
@@ -448,20 +488,39 @@ def phase_v3_int8(attn, i8, device, bf16_encoded):
 
 
 def time_attention(attn, device, smi: str, batch: int = 128) -> dict:
+    """Both call forms at B=128, each in turns (plain, kernel, kernel, plain)
+    beside its bound. No PyTorch call computes the XL-shifted scores, so
+    `library_ms` is None; SDPA at the same q/k/v shape without the position
+    term is printed as context (the port never calls it). -> the encoder
+    form's record."""
     B, H, T, Dh = batch, 8, 188, 128
-    qu, qw, k, v, p = attention_inputs(B, H, T, Dh, torch.bfloat16, device, seed=1)
     lens = torch.full((B,), T, dtype=torch.int32, device=device)
-    kernel = lambda: attn.relpos_attention(qu, qw, k, v, p, lens, T)
-    plain = lambda: attn.relpos_attention_plain(qu, qw, k, v, p, lens, T)
-    # plain, kernel, kernel, plain: drift in clocks shows up as a spread
-    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
-    nbytes, ops = attention_cost(B, H, T, Dh)  # all rows are full length here
-    bound_ms, bound_by = bound(nbytes, ops, BF16_FLOPS)
-    print(f"timing [{smi}] relpos_attention B={B} H={H} T={T} Dh={Dh} bf16: kernel "
-          f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}), library call: none computes the XL-shifted scores")
-    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+    record = {}
+    for form in ("contiguous f32 out", "strided bf16 out"):
+        strided = form.startswith("strided")
+        qu, qw, k, v, p = attention_inputs(B, H, T, Dh, torch.bfloat16, device, seed=1,
+                                           strided=strided)
+        out = bf16_out(B, H, T, Dh, device) if strided else None
+        kernel = lambda: attn.relpos_attention(qu, qw, k, v, p, lens, T, out=out)
+        plain = lambda: attn.relpos_attention_plain(qu, qw, k, v, p, lens, T, out=out)
+        # plain, kernel, kernel, plain: drift in clocks shows up as a spread
+        p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
+        # all rows are full length here
+        nbytes, ops = attention_cost(B, H, T, Dh, 2 if strided else 4)
+        bound_ms, bound_by = bound(nbytes, ops, BF16_FLOPS)
+        print(f"timing [{smi}] relpos_attention B={B} H={H} T={T} Dh={Dh} bf16, {form}: "
+              f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
+              f"{bound_ms / min(k1, k2):.0%} of it")
+        record = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound_ms,
+                  "bound_by": bound_by, "library_ms": None}
+    q, kk, vv = (x.contiguous() for x in (qu, k, v))
+    sdpa = [cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, kk, vv))
+            for _ in range(2)]
+    print(f"timing [{smi}] context, not the same function: SDPA on q/k/v [{B}, {H}, {T}, "
+          f"{Dh}] bf16 without the position term {sdpa[0]:.4f}/{sdpa[1]:.4f} ms; no PyTorch "
+          f"call computes the XL-shifted scores")
+    return record
 
 
 def time_int8(i8, device, smi: str) -> dict:

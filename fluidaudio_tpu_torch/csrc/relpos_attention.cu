@@ -1,37 +1,75 @@
 // Transformer-XL relative-position attention for Hopper (sm_90a).
 //
 // Replaces fluidaudio_tpu/ops/attention_pallas.py::relpos_attention (Pallas
-// body `_attn_kernel`). For every batch row b, head h and query t:
+// body `_attn_kernel`, lines 49-98, called at 151). For every batch row b,
+// head h and query t:
 //
 //   ac[t,s] = (q+u)[t] . k[s]
 //   bd[t,s] = (q+w)[t] . p[(T-1) + s - t]      (the XL shift as a direct index)
-//   score   = (ac + bd) / sqrt(Dh), key columns s >= min(len[b], T) -> -FLT_MAX
+//   score   = (ac + bd) * (1/sqrt(Dh)); key columns s >= min(len[b], T) get
+//             -FLT_MAX, so a row with no valid key averages v uniformly
 //   out[t]  = softmax_s(score) . v            (f32 softmax and accumulation)
 //
-// Inputs qu/qw/k/v [B,H,T,Dh] and p [H,2T-1,Dh] are bf16 or f32, lengths [B]
-// int32; the output is f32 [B,H,T,Dh]. Dh is any multiple of 16 up to 128.
+// qu/qw/k/v are [B,H,T,Dh] views and p a [H,2T-1,Dh] view, bf16 or f32,
+// with a contiguous last axis and any other strides (multiples of 16 bytes):
+// the encoder hands over the transposes of its [B,T,H,Dh] projections as
+// they lie. lengths is [B] int32. The output is a [B,H,T,Dh] view under the
+// same rule, f32 or bf16 (rounded once, to nearest even). Dh is any multiple
+// of 16 up to 128.
 //
-// What bounds it on an H100: at the Parakeet sizes (T <= 188, Dh = 128) one
-// (b, h) is ~14 M multiply-adds over ~290 KB of inputs, so the problem is
-// small and latency-bound, not HBM-bound: nothing of size [T, T] ever leaves
-// the chip; a 15 s batch of 128 rows moves ~300 MB per layer (bf16 in, f32
-// out), 0.09 ms at the H100's 3.35 TB/s against 0.71 ms measured on an H100
-// SXM; the K/V/p tiles that several query blocks share come from the L2.
+// What bounds it on an H100: at the v3 encoder's call (B=128, H=8, T=188,
+// Dh=128) it reads 198 MB of bf16 and writes 49 MB of bf16, 0.074 ms at
+// 3.35 TB/s; its three products are 27.8 GFLOP, 0.028 ms at 989 TFLOP/s. So
+// the bytes bound it, and nothing of size [T, T] may leave the chip.
 //
-// What the design does about it:
-// - bf16 (the encoder's type): tensor cores through `mma.sync` m16n8k16 with
-//   f32 accumulation. One block of 4 warps per (b, h, 64 query rows), each
-//   warp owning 16 rows; the block walks 32-key tiles with an online softmax,
-//   so shared memory stays ~90 KB at Dh 128 whatever T is and two blocks fit
-//   on an SM. The shifted position scores of a key tile need p rows
-//   (T-1)+s-t for the warp's 16 rows: one contiguous band of 47 rows, whose
-//   16 x 48 product is staged per warp in shared memory and read back along
-//   the diagonal. Probabilities are rounded to bf16 for P.V, as the Pallas
-//   kernel rounds them to v's type.
-// - f32 (the small test fixtures): scalar FMAs, one block per (b, h,
-//   16-query tile), the same online softmax over 32-key tiles, all in f32.
-// wgmma/TMA pipelines are the next step for the bf16 path.
+// What the design does about it (bf16, `relpos_attention_wgmma`):
+// - One block per (64 query rows, h, b): 3 x 8 x 128 = 3,072 blocks at v3
+//   (192 rows computed for 188), 256 threads. Warpgroup 0 is the producer:
+//   one thread issues TMA loads (`cp.async.bulk.tensor`, 128-byte swizzle,
+//   boxes of 64 columns, zero fill past Dh, past T and before row 0): the
+//   block's qu and qw tiles once, then per 32-key tile its K and V tiles into
+//   a ring of two stages guarded by full/empty mbarrier pairs. The tensor
+//   maps are 4-D (Dh, T, H, B) over the caller's strides, so no copy is made.
+// - The p rows a key tile needs form a 95-row band, (T-1) + s0 - (t0 + 63)
+//   onwards, and the next tile's band is this one's moved on by 32 rows. So
+//   p lives in a ring of four 32-row chunks: the first tile loads three, every
+//   later tile one, with its K and V.
+// - Warpgroup 1 owns the 64 query rows. Per key tile it runs
+//   `wgmma.m64n32k16` for (q+u)K^T and three more, one per chunk, for (q+w)
+//   times the band (both operands K-major from shared memory), with f32
+//   accumulators in registers.
+// - The XL shift stays a direct index: bd[i][j] = band[i][j - i + 63]. Each
+//   thread writes the band values that some key column needs into a skewed
+//   f32 stage (row i, column j - i + 63 -> j, padded rows of 40), and reads
+//   them back at its own score positions. Row i lives in one warp, so a
+//   __syncwarp orders the exchange.
+// - The online softmax runs in registers on the accumulator layout (row
+//   16w + l/4 + 8h, column 8i + 2(l%4) + j for register 4i + 2h + j). The
+//   probabilities, rounded to bf16 as the Pallas kernel rounds them to v's
+//   type, become the register A operand of `wgmma.m64nDk16` for P.V (the
+//   accumulator layout of two 8-column groups is the A fragment of a 16-key
+//   step); V comes from shared memory through the bf16 transpose bit.
+// - The epilogue divides by the row sum and passes each warp's 16 rows
+//   through a swizzled 2 KB shared-memory stage, 128 bytes of a row at a
+//   time, so that device memory sees 16-byte stores along rows; f32 and
+//   bf16 out run the same code up to the store, so bf16 out equals f32 out
+//   rounded to bf16, bit for bit.
+// - Budget at Dh 128 (Dh <= 64 takes one 64-column atom, half of each):
+//   qu + qw 32 KB, two K/V stages of 16 KB, the p ring 32 KB, the skewed
+//   band stage 10 KB: 107 KB with alignment, so two blocks (16 warps) share
+//   an SM and one block's loads and epilogue run under the other's products.
+//   ptxas (sm_90a): 128 registers at launch (the consumer raises its own to
+//   216 with `setmaxnreg`), no spills; printed by `chip_smoke.py` phase 1.
+// - What is left: each key tile is a chain (score products, band exchange,
+//   softmax, P.V) that one warpgroup walks in order; `scripts/
+//   torch_attention_probe.py` measures its cost per tile against the
+//   tensor-core time (PERF.md).
+//
+// f32 (the small test fixtures, `relpos_attention_simt`): scalar FMAs, one
+// block per (b, h, 16-query tile), the same online softmax over 32-key
+// tiles, all in f32.
 
+#include <cuda.h>  // CUtensorMap and its enums only: the library links no libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -41,35 +79,208 @@
 
 namespace {
 
-// ---------------------------------------------------------------- bf16 path
-
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMQ = 16 * kMmaWarps;     // query rows per block
-constexpr int kMK = 32;                 // keys per tile
-constexpr int kBand = kMQ + kMK;        // p rows a key tile needs (95) + 1
-constexpr int kWarpBand = 16 + kMK;     // p rows one warp needs (47) + 1
-constexpr int kRawLd = kWarpBand + 4;   // f32 stride of the per-warp band scores
-
-template <int DH>
-struct MmaSmem {
-  static constexpr int kLd = DH + 8;  // bf16 row stride: 16-byte rows, conflict-free fragments
-  static constexpr int kQu = 0;       // offsets in bf16 elements
-  static constexpr int kQw = kQu + kMQ * kLd;
-  static constexpr int kK = kQw + kMQ * kLd;
-  static constexpr int kV = kK + kMK * kLd;
-  static constexpr int kP = kV + kMK * kLd;
-  static constexpr int kRawByte = 2 * (kP + kBand * kLd);
-  static constexpr size_t kBytes = kRawByte + sizeof(float) * kMmaWarps * 16 * kRawLd;
+// strides in elements of a [B, H, T, Dh] view along b, h and t
+struct Strides {
+  long long b, h, t;
 };
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+__device__ __forceinline__ void put_pair(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void put_pair(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// ---------------------------------------------------------------- bf16 path
+
+constexpr int kQRows = 64;      // query rows per block: one consumer warpgroup's
+constexpr int kKeys = 32;       // keys per stage
+constexpr int kBand = 96;       // p rows a key tile needs: kQRows + kKeys - 1, rounded up
+constexpr int kStages = 2;      // K and V tiles in flight
+// The band of a key tile is held as 3 chunks of kKeys p rows. The next tile's
+// band is this one's moved on by kKeys rows, so each tile loads one new chunk
+// into a ring of slots; a chunk is read by 3 tiles, and the slot it
+// overwrites was last read kStages tiles before the one it is loaded for.
+constexpr int kPChunks = kBand / kKeys;
+constexpr int kPSlots = kPChunks - 1 + kStages;
+constexpr int kThreads = 256;   // warpgroup 0 loads, warpgroup 1 computes
+constexpr int kRowBytes = 128;  // one row of the 128-byte swizzle: 64 bf16
+constexpr int kSkewLd = 40;     // f32 row stride of the skewed band stage
+
+template <int DP>  // padded head width: 64 or 128, one or two 64-column atoms
+struct Layout {
+  static constexpr int kAtoms = DP / 64;
+  static constexpr int kQTile = kAtoms * kQRows * kRowBytes;  // qu or qw
+  static constexpr int kKTile = kAtoms * kKeys * kRowBytes;   // K or V
+  static constexpr int kStageBytes = 2 * kKTile;              // K, then V
+  static constexpr int kQu = 0;
+  static constexpr int kQw = kQTile;
+  static constexpr int kStage0 = 2 * kQTile;
+  static constexpr int kP = kStage0 + kStages * kStageBytes;  // kPSlots chunks of kKTile bytes
+  static constexpr int kSkew = kP + kPSlots * kKTile;
+  static constexpr int kBytes = kSkew + kQRows * kSkewLd * 4 + 1024;  // + 1 KB alignment
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// spins until the barrier's phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// One TMA box into shared memory at dst; its bytes complete on bar. Elements
+// outside the tensor (negative coordinates included) arrive as zeros, and
+// count towards the bytes all the same.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// wgmma descriptor of a K-major tile as TMA writes it with the 128-byte
+// swizzle: 128-byte rows, 8-row groups 1024 bytes apart (stride offset), the
+// leading offset unused by this layout (1), layout type 1 (128-byte swizzle).
+// Tiles start on 1024-byte boundaries (base offset 0); a step of 16 bf16
+// (32 bytes) inside the swizzle row adds 2 to the address field.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The same bytes read N-major (V as the B operand of P.V, keys along K): the
+// 64-column atoms of one V tile are kKeys x 128 bytes apart (leading offset),
+// 8-key groups 1024 bytes apart (stride offset).
+__device__ __forceinline__ uint64_t nmajor_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((kKeys * kRowBytes) >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d (64 x 32 f32) = A (64 x 16 bf16) * B (32 x 16 bf16)^T + (accumulate ? d : 0),
+// both operands K-major in shared memory
+__device__ __forceinline__ void wgmma_n32(float* d, uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64 f32) = A (64 x 16 bf16, registers) * B (16 x 64 bf16), B N-major
+// in shared memory (the transpose bit), + (accumulate ? d : 0)
+__device__ __forceinline__ void wgmma_pv64(float* d, const uint32_t (&a)[4], uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128 f32) = A (64 x 16 bf16, registers) * B (16 x 128 bf16), B N-major
+// in shared memory (the transpose bit), + (accumulate ? d : 0)
+__device__ __forceinline__ void wgmma_pv128(float* d, const uint32_t (&a)[4], uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <int DP>
+__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  if constexpr (DP == 64) {
+    wgmma_pv64(d, a, b, accumulate);
+  } else {
+    wgmma_pv128(d, a, b, accumulate);
+  }
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator accesses across a fence or a wait
+template <int N>
+__device__ __forceinline__ void pin(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -77,204 +288,261 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows [row0, row0 + n_rows) of a row-major [*, DH] bf16 tensor into shared
-// memory with row stride DH + 8; rows outside [0, row_end) become zeros
-template <int DH>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           int row0, int n_rows, int row_end) {
-  constexpr int kChunks = DH / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < n_rows * kChunks; i += blockDim.x) {
-    const int r = i / kChunks, c = i % kChunks, row = row0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row >= 0 && row < row_end)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)row * DH + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * (DH + 8) + c * 8) = v;
-  }
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kMmaThreads)
-relpos_attention_mma(const __nv_bfloat16* __restrict__ qu, const __nv_bfloat16* __restrict__ qw,
-                     const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ p, const int* __restrict__ lengths,
-                     float* __restrict__ out, int H, int Tlen, float scale) {
-  using L = MmaSmem<DH>;
-  constexpr int kLd = L::kLd;
-  constexpr int kKSteps = DH / 16;
-  constexpr int kOTiles = DH / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sbase = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sQu = sbase + L::kQu;
-  __nv_bfloat16* sQw = sbase + L::kQw;
-  __nv_bfloat16* sK = sbase + L::kK;
-  __nv_bfloat16* sV = sbase + L::kV;
-  __nv_bfloat16* sP = sbase + L::kP;
-
-  const int t0 = blockIdx.x * kMQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;    // fragment row group
-  const int tig = lane % 4;  // thread in group
-  float* sRaw = reinterpret_cast<float*>(smem + L::kRawByte) + warp * 16 * kRawLd;
-
-  const size_t head = ((size_t)b * H + h) * (size_t)Tlen * DH;
-  const int n_pos = 2 * Tlen - 1;
-  const __nv_bfloat16* ph = p + (size_t)h * n_pos * DH;
-  const int valid_len = min(lengths[b], Tlen);
-  const int tw = t0 + 16 * warp;  // this warp's first query row
-
-  stage_rows<DH>(sQu, qu + head, t0, kMQ, Tlen);
-  stage_rows<DH>(sQw, qw + head, t0, kMQ, Tlen);
-
-  float o[kOTiles][4];
+// Writes a warp's 16 output rows (row0 .. row0 + 15 of the query axis)
+// from the P.V accumulators, divided by the row sums: 128 bytes of each row
+// at a time go through the warp's shared-memory stage (16-byte chunks XOR
+// the row, so that neither side conflicts) and leave as 16-byte stores.
+template <int DP, typename OutT>
+__device__ __forceinline__ void store_rows(const float* o, const float (&inv)[2], uint8_t* stage,
+                                           OutT* __restrict__ dst, long long row_stride,
+                                           int row0, int T, int Dh, int lane) {
+  constexpr int kCols = 128 / sizeof(OutT);  // columns staged at a time
+  constexpr int kPer = 16 / sizeof(OutT);    // columns in one 16-byte store
+  const int g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int nt = 0; nt < kOTiles; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
-  float l_run[2] = {0.f, 0.f};
-
-  const __nv_bfloat16* qa = sQu + 16 * warp * kLd + g * kLd + tig * 2;
-  const __nv_bfloat16* qb = sQw + 16 * warp * kLd + g * kLd + tig * 2;
-  // the warp's band starts (kMQ - 16) - 16 * warp rows into the block's band
-  const __nv_bfloat16* pw = sP + (kMQ - 16 - 16 * warp) * kLd + g * kLd + tig * 2;
-  const __nv_bfloat16* kb = sK + g * kLd + tig * 2;
-
-  for (int s0 = 0; s0 < Tlen; s0 += kMK) {
-    __syncthreads();  // the previous tile's readers are done
-    stage_rows<DH>(sK, k + head, s0, kMK, Tlen);
-    stage_rows<DH>(sV, v + head, s0, kMK, Tlen);
-    // p rows (T-1) + s - t for s in the key tile and t in the query tile
-    stage_rows<DH>(sP, ph, (Tlen - 1) + s0 - (t0 + kMQ - 1), kBand, n_pos);
-    __syncthreads();
-
-    float sc[kMK / 8][4];    // ac, then scores, then probabilities
-    float raw[kWarpBand / 8][4];  // (q+w) . p over the warp's band
+  for (int chunk = 0; chunk < DP / kCols; ++chunk) {
+    __syncwarp();
 #pragma unroll
-    for (int nt = 0; nt < kMK / 8; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+    for (int jj = 0; jj < kCols / 8; ++jj) {
+      const int i = chunk * (kCols / 8) + jj;  // accumulator columns 8i .. 8i + 7
 #pragma unroll
-    for (int nt = 0; nt < kWarpBand / 8; ++nt)
-      raw[nt][0] = raw[nt][1] = raw[nt][2] = raw[nt][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kKSteps; ++ks) {
-      const int c = ks * 16;
-      const uint32_t a[4] = {ld32(qa + c), ld32(qa + 8 * kLd + c), ld32(qa + c + 8),
-                             ld32(qa + 8 * kLd + c + 8)};
-      const uint32_t w[4] = {ld32(qb + c), ld32(qb + 8 * kLd + c), ld32(qb + c + 8),
-                             ld32(qb + 8 * kLd + c + 8)};
-#pragma unroll
-      for (int nt = 0; nt < kMK / 8; ++nt) {
-        const __nv_bfloat16* kr = kb + nt * 8 * kLd + c;
-        mma_bf16(sc[nt], a, ld32(kr), ld32(kr + 8));
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = g + 8 * hh;
+        const int byte = (8 * jj + 2 * t) * static_cast<int>(sizeof(OutT));
+        OutT* p = reinterpret_cast<OutT*>(stage + r * 128 + (((byte >> 4) ^ (r & 7)) << 4) +
+                                          (byte & 15));
+        put_pair(p, __fmul_rn(o[4 * i + 2 * hh], inv[hh]),
+                 __fmul_rn(o[4 * i + 2 * hh + 1], inv[hh]));
       }
-#pragma unroll
-      for (int nt = 0; nt < kWarpBand / 8; ++nt) {
-        const __nv_bfloat16* pr = pw + nt * 8 * kLd + c;
-        mma_bf16(raw[nt], w, ld32(pr), ld32(pr + 8));
-      }
-    }
-    // band scores to shared memory, then read back along the diagonal:
-    // bd[i][j] = raw[i][j - i + 15] for warp row i and tile key j
-#pragma unroll
-    for (int nt = 0; nt < kWarpBand / 8; ++nt) {
-      const int u = nt * 8 + tig * 2;
-      *reinterpret_cast<float2*>(sRaw + g * kRawLd + u) = make_float2(raw[nt][0], raw[nt][1]);
-      *reinterpret_cast<float2*>(sRaw + (g + 8) * kRawLd + u) =
-          make_float2(raw[nt][2], raw[nt][3]);
     }
     __syncwarp();
-
-    float tile_max[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int nt = 0; nt < kMK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = g + (e >> 1) * 8;
-        const int j = nt * 8 + tig * 2 + (e & 1);
-        const int s = s0 + j;
-        const float bd = sRaw[i * kRawLd + (j - i + 15)];
-        // columns past the key axis carry no weight; masked columns get f32
-        // min like the reference (a row with no valid key averages uniformly)
-        const float x = s >= Tlen ? -INFINITY : (s >= valid_len ? -FLT_MAX : (sc[nt][e] + bd) * scale);
-        sc[nt][e] = x;
-        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], x);
-      }
-    }
-    float corr[2], psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
-      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
-      // every tile holds column s0 < T, so the new max is finite
-      const float m_new = fmaxf(m_run[r], tile_max[r]);
-      corr[r] = expf(m_run[r] - m_new);
-      m_run[r] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < kMK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float e_x = expf(sc[nt][e] - m_run[e >> 1]);  // -inf -> 0
-        sc[nt][e] = e_x;
-        psum[e >> 1] += e_x;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
-      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
-      l_run[r] = l_run[r] * corr[r] + psum[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < kOTiles; ++nt) {
-      o[nt][0] *= corr[0];
-      o[nt][1] *= corr[0];
-      o[nt][2] *= corr[1];
-      o[nt][3] *= corr[1];
-    }
-    // P.V: two adjacent score tiles form one m16k16 A fragment
-#pragma unroll
-    for (int kk = 0; kk < kMK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                             pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                             pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                             pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-      const unsigned short* vr =
-          reinterpret_cast<const unsigned short*>(sV + (kk * 16 + tig * 2) * kLd + g);
-#pragma unroll
-      for (int nt = 0; nt < kOTiles; ++nt) {
-        const unsigned short* vc = vr + nt * 8;
-        const uint32_t b0 = vc[0] | ((uint32_t)vc[kLd] << 16);
-        const uint32_t b1 = vc[8 * kLd] | ((uint32_t)vc[9 * kLd] << 16);
-        mma_bf16(o[nt], a, b0, b1);
+    for (int q = 0; q < 4; ++q) {  // 16 rows x 8 vectors, 4 per lane
+      const int r = q * 4 + lane / 8, v = lane % 8;
+      const uint4 bits = *reinterpret_cast<const uint4*>(stage + r * 128 + ((v ^ (r & 7)) << 4));
+      const int row = row0 + r, col = chunk * kCols + v * kPer;
+      if (row < T && col < Dh) {
+        *reinterpret_cast<uint4*>(dst + row * row_stride + col) = bits;
       }
     }
   }
+}
 
-  const float inv0 = 1.f / l_run[0], inv1 = 1.f / l_run[1];
-  const int r0 = tw + g, r1 = tw + g + 8;
+template <int DP, typename OutT>
+__global__ void __launch_bounds__(kThreads, 2)
+relpos_attention_wgmma(const __grid_constant__ CUtensorMap qu_map,
+                       const __grid_constant__ CUtensorMap qw_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       const __grid_constant__ CUtensorMap p_map, const int* __restrict__ lengths,
+                       OutT* __restrict__ out, Strides os, int T, int Dh, float scale) {
+  using L = Layout<DP>;
+  constexpr int kAtoms = L::kAtoms;
+  extern __shared__ uint8_t smem[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];  // q, kStages full, kStages empty
+  const uint32_t base = (smem_addr(smem) + 1023) & ~1023u;
+  uint8_t* const base_ptr = smem + (base - smem_addr(smem));
+  const uint32_t qbar = smem_addr(bars), full = qbar + 8, empty = full + 8 * kStages;
+
+  const int t0 = blockIdx.x * kQRows, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (T + kKeys - 1) / kKeys;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);   // the producer's arrive, then the TMA bytes
+      mbar_init(empty + 8 * s, 1);  // the consumer warpgroup's arrive
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      prefetch_map(&qu_map);
+      prefetch_map(&qw_map);
+      prefetch_map(&k_map);
+      prefetch_map(&v_map);
+      prefetch_map(&p_map);
+      mbar_arrive_expect_tx(qbar, 2 * L::kQTile);
+      for (int a = 0; a < kAtoms; ++a) {
+        tma_load_4d(base + L::kQu + a * kQRows * kRowBytes, &qu_map, qbar, 64 * a, t0, h, b);
+        tma_load_4d(base + L::kQw + a * kQRows * kRowBytes, &qw_map, qbar, 64 * a, t0, h, b);
+      }
+      const int p0 = (T - 1) - (t0 + kQRows - 1);  // p row of (t0 + 63, s = 0)
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int s0 = kt * kKeys;
+        const uint32_t st = base + L::kStage0 + stage * L::kStageBytes;
+        const uint32_t bar = full + 8 * stage;
+        // the first tile loads chunks 0 .. 2 of the p band, every later one chunk kt + 2
+        const int n0 = kt == 0 ? 0 : kt + kPChunks - 1;
+        const int n1 = kt + kPChunks;
+        mbar_wait(empty + 8 * stage, phase ^ 1);  // the first use finds the stage free
+        mbar_arrive_expect_tx(bar, L::kStageBytes + (n1 - n0) * L::kKTile);
+        for (int a = 0; a < kAtoms; ++a) {
+          tma_load_4d(st + a * kKeys * kRowBytes, &k_map, bar, 64 * a, s0, h, b);
+          tma_load_4d(st + L::kKTile + a * kKeys * kRowBytes, &v_map, bar, 64 * a, s0, h, b);
+          for (int n = n0; n < n1; ++n) {  // chunk n: p rows p0 + 32n .., slot n % kPSlots
+            tma_load_3d(base + L::kP + (n % kPSlots) * L::kKTile + a * kKeys * kRowBytes, &p_map,
+                        bar, 64 * a, p0 + kKeys * n, h);
+          }
+        }
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int valid_len = min(lengths[b], T);
+    float* const skew = reinterpret_cast<float*>(base_ptr + L::kSkew);
+    const uint32_t qa = base + L::kQu, qb = base + L::kQw;
+
+    float o[DP / 2];
 #pragma unroll
-  for (int nt = 0; nt < kOTiles; ++nt) {
-    const int col = nt * 8 + tig * 2;
-    if (r0 < Tlen)
-      *reinterpret_cast<float2*>(out + head + (size_t)r0 * DH + col) =
-          make_float2(o[nt][0] * inv0, o[nt][1] * inv0);
-    if (r1 < Tlen)
-      *reinterpret_cast<float2*>(out + head + (size_t)r1 * DH + col) =
-          make_float2(o[nt][2] * inv1, o[nt][3] * inv1);
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY};  // rows 16 warp + g and + 8
+    float l_run[2] = {0.f, 0.f};
+
+    mbar_wait(qbar, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int s0 = kt * kKeys;
+      const uint32_t st = base + L::kStage0 + stage * L::kStageBytes;
+      mbar_wait(full + 8 * stage, phase);
+
+      float sc[kKeys / 2];   // (q+u).k, then scores, then probabilities
+      float bd[kBand / 2];  // (q+w).p over the band: chunks kt .. kt + 2, row j - i + 63
+      wgmma_fence();
+// step ks covers head columns 16ks .. 16ks + 15: atom ks / 4, 32 bytes into its rows
+#pragma unroll
+      for (int ks = 0; ks < DP / 16; ++ks) {
+        const uint32_t col = (ks % 4) * 32;
+        wgmma_n32(sc, kmajor_desc(qa + (ks / 4) * kQRows * kRowBytes + col),
+                  kmajor_desc(st + (ks / 4) * kKeys * kRowBytes + col), ks > 0);
+      }
+#pragma unroll
+      for (int q = 0; q < kPChunks; ++q) {  // band rows 32q .. 32q + 31
+        const uint32_t chunk = base + L::kP + ((kt + q) % kPSlots) * L::kKTile;
+#pragma unroll
+        for (int ks = 0; ks < DP / 16; ++ks) {
+          const uint32_t col = (ks % 4) * 32;
+          wgmma_n32(bd + q * kKeys / 2, kmajor_desc(qb + (ks / 4) * kQRows * kRowBytes + col),
+                    kmajor_desc(chunk + (ks / 4) * kKeys * kRowBytes + col), ks > 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      pin<kKeys / 2>(sc);
+      pin<kBand / 2>(bd);
+
+      // band values to the skewed stage: row r, band column u -> key column
+      // u - 63 + r; then each thread reads bd at its own score positions
+      __syncwarp();  // this warp's reads of the previous tile are done
+#pragma unroll
+      for (int i = 0; i < kBand / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 16 * warp + g + 8 * (e >> 1);
+          const int j = 8 * i + 2 * t + (e & 1) - 63 + r;
+          if (j >= 0 && j < kKeys) skew[r * kSkewLd + j] = bd[4 * i + e];
+        }
+      }
+      __syncwarp();
+
+      float tile_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < kKeys / 8; ++i) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = 16 * warp + g + 8 * hh;
+          const float2 band = *reinterpret_cast<const float2*>(skew + r * kSkewLd + 8 * i + 2 * t);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int s = s0 + 8 * i + 2 * t + j;
+            float& x = sc[4 * i + 2 * hh + j];
+            // columns past the key axis carry no weight; masked columns get f32
+            // min like the reference (a row with no valid key averages uniformly)
+            x = s >= T ? -INFINITY
+                       : (s >= valid_len ? -FLT_MAX
+                                         : __fmul_rn(__fadd_rn(x, j ? band.y : band.x), scale));
+            tile_max[hh] = fmaxf(tile_max[hh], x);
+          }
+        }
+      }
+      float corr[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        tile_max[hh] = fmaxf(tile_max[hh], __shfl_xor_sync(0xffffffffu, tile_max[hh], 1));
+        tile_max[hh] = fmaxf(tile_max[hh], __shfl_xor_sync(0xffffffffu, tile_max[hh], 2));
+        // every tile holds column s0 < T, so the new max is finite
+        const float m_new = fmaxf(m_run[hh], tile_max[hh]);
+        corr[hh] = expf(__fsub_rn(m_run[hh], m_new));
+        m_run[hh] = m_new;
+      }
+#pragma unroll
+      for (int e = 0; e < kKeys / 2; ++e) {
+        const float e_x = expf(__fsub_rn(sc[e], m_run[(e >> 1) & 1]));  // -inf -> 0
+        sc[e] = e_x;
+        psum[(e >> 1) & 1] = __fadd_rn(psum[(e >> 1) & 1], e_x);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        psum[hh] = __fadd_rn(psum[hh], __shfl_xor_sync(0xffffffffu, psum[hh], 1));
+        psum[hh] = __fadd_rn(psum[hh], __shfl_xor_sync(0xffffffffu, psum[hh], 2));
+        l_run[hh] = __fadd_rn(__fmul_rn(l_run[hh], corr[hh]), psum[hh]);
+      }
+#pragma unroll
+      for (int i = 0; i < DP / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[4 * i + e] = __fmul_rn(o[4 * i + e], corr[e >> 1]);
+      }
+      // P.V: score columns 16kk .. 16kk + 15 form the A fragment of one step
+      uint32_t pa[kKeys / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+        }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+        wgmma_pv<DP>(o, pa[kk], nmajor_desc(st + L::kKTile + kk * 16 * kRowBytes), 1);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      pin<DP / 2>(o);
+      if (tid == 0) mbar_arrive(empty + 8 * stage);  // K, V and the band are read
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    const float inv[2] = {__frcp_rn(l_run[0]), __frcp_rn(l_run[1])};
+    // the warp's own 16 rows of the skewed stage (2,560 bytes) hold its output stage
+    uint8_t* const stage_out = reinterpret_cast<uint8_t*>(skew + 16 * warp * kSkewLd);
+    store_rows<DP>(o, inv, stage_out, out + b * os.b + h * os.h, os.t, t0 + 16 * warp, T, Dh,
+                   lane);
   }
 }
 
 // ----------------------------------------------------------------- f32 path
 
-constexpr int kTQ = 16;                // query rows per block
-constexpr int kTK = 32;                // key columns per inner tile
-constexpr int kGroup = 8;              // threads that share one query row
-constexpr int kThreads = kTQ * kGroup; // 128
+constexpr int kTQ = 16;                    // query rows per block
+constexpr int kTK = 32;                    // key columns per inner tile
+constexpr int kGroup = 8;                  // threads that share one query row
+constexpr int kSimtThreads = kTQ * kGroup;  // 128
 constexpr int kKeysPerThread = kTK / kGroup;
 
 template <int DH>
@@ -291,12 +559,13 @@ struct SimtSmem {
   static constexpr size_t kBytes = sizeof(float) * kFloats;
 };
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
+template <int DH, typename OutT>
+__global__ void __launch_bounds__(kSimtThreads)
 relpos_attention_simt(const float* __restrict__ qu, const float* __restrict__ qw,
                       const float* __restrict__ k, const float* __restrict__ v,
                       const float* __restrict__ p, const int* __restrict__ lengths,
-                      float* __restrict__ out, int H, int Tlen, float scale) {
+                      OutT* __restrict__ out, Strides squ, Strides sqw, Strides sk, Strides sv,
+                      Strides so, long long p_h, long long p_row, int Tlen, float scale) {
   using L = SimtSmem<DH>;
   constexpr int kLd = L::kLd;
   constexpr int kDPerThread = DH / kGroup;
@@ -315,19 +584,18 @@ relpos_attention_simt(const float* __restrict__ qu, const float* __restrict__ qw
   const int row = tid / kGroup;  // query row inside the tile
   const int lane = tid % kGroup;
 
-  const size_t head = ((size_t)b * H + h) * (size_t)Tlen * DH;
-  const float* quh = qu + head;
-  const float* qwh = qw + head;
-  const float* kh = k + head;
-  const float* vh = v + head;
+  const float* quh = qu + b * squ.b + h * squ.h;
+  const float* qwh = qw + b * sqw.b + h * sqw.h;
+  const float* kh = k + b * sk.b + h * sk.h;
+  const float* vh = v + b * sv.b + h * sv.h;
   const int n_pos = 2 * Tlen - 1;
-  const float* ph = p + (size_t)h * n_pos * DH;
+  const float* ph = p + h * p_h;
   const int valid_len = min(lengths[b], Tlen);
 
-  for (int i = tid; i < kTQ * DH; i += kThreads) {
+  for (int i = tid; i < kTQ * DH; i += kSimtThreads) {
     const int r = i / DH, d = i % DH, t = t0 + r;
-    sQu[r * kLd + d] = t < Tlen ? quh[(size_t)t * DH + d] : 0.f;
-    sQw[r * kLd + d] = t < Tlen ? qwh[(size_t)t * DH + d] : 0.f;
+    sQu[r * kLd + d] = t < Tlen ? quh[t * squ.t + d] : 0.f;
+    sQw[r * kLd + d] = t < Tlen ? qwh[t * sqw.t + d] : 0.f;
   }
 
   float acc[kDPerThread];
@@ -338,17 +606,17 @@ relpos_attention_simt(const float* __restrict__ qu, const float* __restrict__ qw
 
   for (int s0 = 0; s0 < Tlen; s0 += kTK) {
     __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < kTK * DH; i += kThreads) {
+    for (int i = tid; i < kTK * DH; i += kSimtThreads) {
       const int r = i / DH, d = i % DH, s = s0 + r;
-      sK[r * kLd + d] = s < Tlen ? kh[(size_t)s * DH + d] : 0.f;
-      sV[r * kLd + d] = s < Tlen ? vh[(size_t)s * DH + d] : 0.f;
+      sK[r * kLd + d] = s < Tlen ? kh[s * sk.t + d] : 0.f;
+      sV[r * kLd + d] = s < Tlen ? vh[s * sv.t + d] : 0.f;
     }
     // position rows this tile reads: (T-1) + s - t for s in the key tile and
     // t in the query tile, i.e. kTQ + kTK - 1 consecutive rows from pbase
     const int pbase = (Tlen - 1) + s0 - (t0 + kTQ - 1);
-    for (int i = tid; i < (kTQ + kTK - 1) * DH; i += kThreads) {
+    for (int i = tid; i < (kTQ + kTK - 1) * DH; i += kSimtThreads) {
       const int j = i / DH, d = i % DH, r = pbase + j;
-      sP[j * kLd + d] = (r >= 0 && r < n_pos) ? ph[(size_t)r * DH + d] : 0.f;
+      sP[j * kLd + d] = (r >= 0 && r < n_pos) ? ph[r * p_row + d] : 0.f;
     }
     __syncthreads();
 
@@ -410,68 +678,171 @@ relpos_attention_simt(const float* __restrict__ qu, const float* __restrict__ qw
   const int t = t0 + row;
   if (t < Tlen) {
     const float inv = 1.f / l;
-    float* o = out + head + (size_t)t * DH;
+    OutT* o = out + b * so.b + h * so.h + t * so.t;
 #pragma unroll
-    for (int j = 0; j < kDPerThread; ++j) o[lane + kGroup * j] = acc[j] * inv;
+    for (int j = 0; j < kDPerThread; ++j) put(o + lane + kGroup * j, acc[j] * inv);
   }
 }
 
 // ----------------------------------------------------------------- launch
 
-template <int DH>
-cudaError_t launch(bool is_bf16, const void* qu, const void* qw, const void* k, const void* v,
-                   const void* p, const void* lengths, void* out, int B, int H, int T_,
-                   cudaStream_t stream) {
-  const float scale = 1.0f / sqrtf((float)DH);
-  const int* lens = static_cast<const int*>(lengths);
-  float* o = static_cast<float*>(out);
-  cudaError_t err;
-  if (is_bf16) {
-    using E = __nv_bfloat16;
-    auto kernel = relpos_attention_mma<DH>;
-    const size_t smem = MmaSmem<DH>::kBytes;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((T_ + kMQ - 1) / kMQ, H, B);
-    kernel<<<grid, kMmaThreads, smem, stream>>>(
-        static_cast<const E*>(qu), static_cast<const E*>(qw), static_cast<const E*>(k),
-        static_cast<const E*>(v), static_cast<const E*>(p), lens, o, H, T_, scale);
-  } else {
-    auto kernel = relpos_attention_simt<DH>;
-    const size_t smem = SimtSmem<DH>::kBytes;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((T_ + kTQ - 1) / kTQ, H, B);
-    kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const float*>(qu), static_cast<const float*>(qw),
-        static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(p), lens, o, H, T_, scale);
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so that the
+// library links no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The map of a bf16 tensor of `rank` axes, innermost first (the innermost
+// contiguous, the others at `strides` elements), read in boxes of 64
+// elements x box_rows rows (x 1 on the outer axes) with the 128-byte
+// swizzle and zero fill outside the tensor.
+bool encode_bf16(EncodeTiled encode, CUtensorMap* map, const void* ptr, int rank,
+                 const long long* dims, const long long* strides, int box_rows) {
+  cuuint64_t d[4], s[3];
+  cuuint32_t box[4], elem[4];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    box[i] = i == 0 ? 64 : (i == 1 ? box_rows : 1);
+    elem[i] = 1;
+    if (i > 0) s[i - 1] = static_cast<cuuint64_t>(strides[i - 1]) * 2;  // bytes
   }
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), d, s, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP, typename OutT>
+cudaError_t launch_wgmma(const void* qu, const void* qw, const void* k, const void* v,
+                         const void* p, const int* lengths, OutT* out, const Strides* st,
+                         long long p_h, long long p_row, int B, int H, int T, int Dh,
+                         float scale, cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  CUtensorMap maps[5];
+  const void* ptrs[4] = {qu, qw, k, v};
+  const int rows[4] = {kQRows, kQRows, kKeys, kKeys};
+  for (int i = 0; i < 4; ++i) {
+    const long long dims[4] = {Dh, T, H, B};
+    const long long strides[3] = {st[i].t, st[i].h, st[i].b};
+    if (!encode_bf16(encode, &maps[i], ptrs[i], 4, dims, strides, rows[i])) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  const long long p_dims[3] = {Dh, 2LL * T - 1, H};
+  const long long p_strides[2] = {p_row, p_h};
+  if (!encode_bf16(encode, &maps[4], p, 3, p_dims, p_strides, kKeys)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = relpos_attention_wgmma<DP, OutT>;
+  const int smem = Layout<DP>::kBytes;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + kQRows - 1) / kQRows, H, B);
+  kernel<<<grid, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4], lengths,
+                                           out, st[4], T, Dh, scale);
   return cudaGetLastError();
+}
+
+template <int DH, typename OutT>
+cudaError_t launch_simt(const void* qu, const void* qw, const void* k, const void* v,
+                        const void* p, const int* lengths, OutT* out, const Strides* st,
+                        long long p_h, long long p_row, int B, int H, int T, float scale,
+                        cudaStream_t stream) {
+  auto kernel = relpos_attention_simt<DH, OutT>;
+  const size_t smem = SimtSmem<DH>::kBytes;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + kTQ - 1) / kTQ, H, B);
+  kernel<<<grid, kSimtThreads, smem, stream>>>(
+      static_cast<const float*>(qu), static_cast<const float*>(qw), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(p), lengths, out, st[0], st[1],
+      st[2], st[3], st[4], p_h, p_row, T, scale);
+  return cudaGetLastError();
+}
+
+template <typename OutT>
+cudaError_t launch(bool is_bf16, const void* qu, const void* qw, const void* k, const void* v,
+                   const void* p, const int* lengths, OutT* out, const Strides* st,
+                   long long p_h, long long p_row, int B, int H, int T, int Dh,
+                   cudaStream_t s) {
+  const float scale = 1.0f / sqrtf((float)Dh);
+  if (is_bf16) {
+    if (Dh <= 64) {
+      return launch_wgmma<64>(qu, qw, k, v, p, lengths, out, st, p_h, p_row, B, H, T, Dh, scale, s);
+    }
+    return launch_wgmma<128>(qu, qw, k, v, p, lengths, out, st, p_h, p_row, B, H, T, Dh, scale, s);
+  }
+  switch (Dh) {
+#define RELPOS_SIMT_CASE(D) \
+  case D:                   \
+    return launch_simt<D>(qu, qw, k, v, p, lengths, out, st, p_h, p_row, B, H, T, scale, s);
+    RELPOS_SIMT_CASE(16)
+    RELPOS_SIMT_CASE(32)
+    RELPOS_SIMT_CASE(48)
+    RELPOS_SIMT_CASE(64)
+    RELPOS_SIMT_CASE(80)
+    RELPOS_SIMT_CASE(96)
+    RELPOS_SIMT_CASE(112)
+    RELPOS_SIMT_CASE(128)
+#undef RELPOS_SIMT_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
+// Dynamic shared memory the bf16 kernel asks for at launch, in bytes, at a
+// padded head width of 64 or 128.
+extern "C" int relpos_attention_smem_bytes(int dp) {
+  return dp == 64 ? Layout<64>::kBytes : Layout<128>::kBytes;
+}
+
 // Plain C entry point (loaded with ctypes). Launches on `stream`, does not
 // synchronise, allocates nothing; returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a shape the kernel does not take). bf16 inputs
-// must be 16-byte aligned.
+// (cudaErrorInvalidValue for a shape the kernel does not take). `strides`
+// holds 17 element strides: (b, h, t) of qu, qw, k, v and out, then (h, row)
+// of p. Every last axis is contiguous; for bf16 inputs every pointer and
+// every other stride must be a multiple of 16 bytes, and out's too.
 extern "C" int relpos_attention_launch(const void* qu, const void* qw, const void* k,
                                        const void* v, const void* p, const void* lengths,
-                                       void* out, int B, int H, int T, int Dh, int is_bf16,
-                                       void* stream) {
-  if (B < 1 || B > 65535 || H < 1 || H > 65535 || T < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool bf = is_bf16 != 0;
-  switch (Dh) {
-    case 16: return (int)launch<16>(bf, qu, qw, k, v, p, lengths, out, B, H, T, s);
-    case 32: return (int)launch<32>(bf, qu, qw, k, v, p, lengths, out, B, H, T, s);
-    case 48: return (int)launch<48>(bf, qu, qw, k, v, p, lengths, out, B, H, T, s);
-    case 64: return (int)launch<64>(bf, qu, qw, k, v, p, lengths, out, B, H, T, s);
-    case 80: return (int)launch<80>(bf, qu, qw, k, v, p, lengths, out, B, H, T, s);
-    case 96: return (int)launch<96>(bf, qu, qw, k, v, p, lengths, out, B, H, T, s);
-    case 112: return (int)launch<112>(bf, qu, qw, k, v, p, lengths, out, B, H, T, s);
-    case 128: return (int)launch<128>(bf, qu, qw, k, v, p, lengths, out, B, H, T, s);
-    default: return (int)cudaErrorInvalidValue;
+                                       void* out, const long long* strides, int B, int H, int T,
+                                       int Dh, int is_bf16, int out_is_bf16, void* stream) {
+  if (B < 1 || B > 65535 || H < 1 || H > 65535 || T < 1 || Dh % 16 || Dh < 16 || Dh > 128) {
+    return (int)cudaErrorInvalidValue;
   }
+  Strides st[5];
+  for (int i = 0; i < 5; ++i) st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  const long long p_h = strides[15], p_row = strides[16];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* lens = static_cast<const int*>(lengths);
+  const bool bf = is_bf16 != 0;
+  if (out_is_bf16) {
+    return (int)launch(bf, qu, qw, k, v, p, lens, static_cast<__nv_bfloat16*>(out), st, p_h,
+                       p_row, B, H, T, Dh, s);
+  }
+  return (int)launch(bf, qu, qw, k, v, p, lens, static_cast<float*>(out), st, p_h, p_row, B, H,
+                     T, Dh, s);
 }

@@ -150,15 +150,16 @@ class RelPosMHSA(nn.Module):
         v = self.v(x).reshape(B, T, H, Dh)
         p = self.pos(pos_emb)  # [2T-1, d]
 
-        # [B, H, T, Dh] kernel layout (the JAX package's Pallas layout)
-        qu = (q + self.pos_bias_u).transpose(1, 2).contiguous()
-        qw = (q + self.pos_bias_v).transpose(1, 2).contiguous()
-        kt = k.transpose(1, 2).contiguous()
-        vt = v.transpose(1, 2).contiguous()
-        ph = p.reshape(2 * T - 1, H, Dh).transpose(0, 1).contiguous()  # [H, 2T-1, Dh]
-        out = attention(qu, qw, kt, vt, ph, lengths, T)
-        out = out.to(x.dtype).transpose(1, 2).reshape(B, T, d)
-        return self.out(out)
+        # [B, H, T, Dh] views of the [B, T, H, Dh] projections (the JAX
+        # package's Pallas layout, without the copies): the kernel reads them
+        # strided and writes o in the layout the output projection reads
+        qu = (q + self.pos_bias_u).transpose(1, 2)
+        qw = (q + self.pos_bias_v).transpose(1, 2)
+        ph = p.reshape(2 * T - 1, H, Dh).transpose(0, 1)  # [H, 2T-1, Dh]
+        o = torch.empty(B, T, H, Dh, dtype=x.dtype, device=x.device)
+        attention(qu, qw, k.transpose(1, 2), v.transpose(1, 2), ph, lengths, T,
+                  out=o.transpose(1, 2))
+        return self.out(o.reshape(B, T, d))
 
 
 class ConformerBlock(nn.Module):

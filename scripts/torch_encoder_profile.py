@@ -79,7 +79,8 @@ def kernel_bounds(models, mel, mel_len
 
     def on_attention(mod, args):
         B, T, d = args[0].shape
-        cost = attention_cost(B, mod.n_heads, T, d // mod.n_heads)
+        # the encoder's call writes its output in the compute dtype (bf16)
+        cost = attention_cost(B, mod.n_heads, T, d // mod.n_heads, args[0].element_size())
         shapes["relpos_attention"].append((*cost, BF16_FLOPS))
 
     def on_int8(mod, args):

@@ -3,7 +3,8 @@
 `relpos_attention_plain` (the CPU path and the kernel's on-card oracle) is
 held against `relpos_attention_reference` and against the Pallas kernel in
 interpret mode, with the peaked probes and the shift-only probe of
-`tests/test_attention_pallas.py`. Padded query rows are undefined in every
+`tests/test_attention_pallas.py`, also on the strided views and the `out=`
+buffer the encoder passes. Padded query rows are undefined in every
 path, so only valid rows are compared. The CUDA kernel itself is tested on
 the card by `tests/test_torch_cuda.py`.
 """
@@ -130,7 +131,78 @@ def test_kernel_module_imports_without_cuda():
     assert "relpos_attention_launch" in port.KERNEL_SOURCE.read_text()
 
 
-@pytest.mark.parametrize("bad", ["t_real", "qw_shape", "p_shape", "lengths_shape", "device"])
+def test_kernel_source_multiplies_tma_tiles_with_wgmma():
+    """The bf16 path issues `wgmma` on tiles that TMA brought in, and the
+    `mma.sync` path it replaced is gone (the build itself runs on the card)."""
+    src = port.KERNEL_SOURCE.read_text()
+    assert "cp.async.bulk.tensor" in src and "mbarrier.try_wait" in src
+    assert "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16" in src
+    assert "mma.sync" not in src
+
+
+def _strided(x: np.ndarray, axes) -> torch.Tensor:
+    """A torch view of x with its axes permuted back from a copy laid out in
+    `axes` order, so the view has x's shape and non-contiguous strides."""
+    inverse = np.argsort(axes)
+    return torch.from_numpy(np.ascontiguousarray(x.transpose(axes))).permute(*inverse)
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32, torch.bfloat16])
+def test_plain_on_strided_views_and_out_matches_reference(out_dtype):
+    """The encoder's call: [B, T, H, Dh] projections seen as [B, H, T, Dh]
+    views, p as the [H, 2T-1, Dh] view of a [2T-1, H, Dh] tensor, and the
+    result written into the [B, H, T, Dh] view of a [B, T, H, Dh] buffer.
+    f32 to the 1e-4 of the contiguous case; bf16 out is the f32 result
+    rounded once (bit for bit), so within the 3e-2 the bf16 cases use."""
+    B, H, T, Dh = 2, 2, 40, 64
+    lengths = [40, 17]
+    qu, qw, k, v, p = _mk(B, H, T, Dh, seed=7)
+    views = [_strided(x, (0, 2, 1, 3)) for x in (qu, qw, k, v)]
+    pv = _strided(p, (1, 0, 2))
+    assert not any(x.is_contiguous() for x in views + [pv])
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    want = np.asarray(relpos_attention_reference(
+        *(jnp.asarray(x) for x in (qu, qw, k, v, p)), jnp.asarray(lengths, jnp.int32), T))
+    f32 = port.relpos_attention(*views, pv, lens, T)
+    _valid_rows_close(f32.numpy(), want, lengths, atol=1e-4, rtol=1e-4)
+    if out_dtype is None:
+        return
+    buf = torch.full((B, T, H, Dh), float("nan"), dtype=out_dtype)
+    got = port.relpos_attention(*views, pv, lens, T, out=buf.transpose(1, 2))
+    assert got.data_ptr() == buf.data_ptr() and got.shape == (B, H, T, Dh)
+    torch.testing.assert_close(got, f32.to(out_dtype), rtol=0, atol=0)
+    tol = 1e-4 if out_dtype == torch.float32 else 3e-2
+    _valid_rows_close(got.float().numpy(), want, lengths, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("shape,strides,want", [
+    ((2, 3, 5, 16), (240, 80, 16, 1), [240, 80, 16]),  # contiguous f32
+    ((2, 3, 5, 16), (240, 16, 48, 1), [240, 16, 48]),  # [B, T, H, Dh] transposed
+    ((1, 1, 5, 16), (7, 3, 16, 1), [80, 80, 16]),  # size-1 axes: contiguous strides
+])
+def test_kernel_strides_of_a_view(shape, strides, want):
+    """What the wrapper hands the kernel: element strides of every axis but
+    the last; an axis of size 1 is never stepped along and gets the stride a
+    contiguous tensor would have."""
+    x = torch.zeros(4096).as_strided(shape, strides)
+    assert port._strides("x", x) == want
+
+
+@pytest.mark.parametrize("bad", ["inner_stride", "stride_not_16_bytes", "misaligned_start"])
+def test_kernel_strides_reject_what_tma_cannot_read(bad):
+    base = torch.zeros(8192, dtype=torch.bfloat16)
+    if bad == "inner_stride":
+        x = base.as_strided((2, 2, 4, 16), (256, 128, 32, 2))
+    elif bad == "stride_not_16_bytes":
+        x = base.as_strided((2, 2, 4, 16), (260, 130, 20, 1))  # 40-byte rows
+    else:
+        x = base[1:].as_strided((2, 2, 4, 16), (128, 64, 16, 1))
+    with pytest.raises(ValueError):
+        port._strides("x", x)
+
+
+@pytest.mark.parametrize("bad", ["t_real", "qw_shape", "p_shape", "lengths_shape", "device",
+                                 "out_shape", "out_device"])
 def test_wrapper_rejects_bad_arguments(bad):
     B, H, T, Dh = 2, 2, 8, 16
     t = [torch.zeros(B, H, T, Dh) for _ in range(4)]
@@ -148,5 +220,10 @@ def test_wrapper_rejects_bad_arguments(bad):
     elif bad == "device":
         t = [x.to("meta") for x in t]
         p, lengths = p.to("meta"), lengths.to("meta")
+    out = None
+    if bad == "out_shape":
+        out = torch.zeros(B, T, H, Dh)
+    elif bad == "out_device":
+        out = torch.zeros(B, H, T, Dh, device="meta")
     with pytest.raises(ValueError):
-        port.relpos_attention(*t, p, lengths, t_real)
+        port.relpos_attention(*t, p, lengths, t_real, out=out)

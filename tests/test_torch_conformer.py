@@ -83,9 +83,9 @@ def test_every_block_calls_the_attention_wrapper():
     lengths = torch.tensor([81, 40], dtype=torch.int32)
     calls = []
 
-    def counting(qu, qw, k, v, p, lens, t_real):
+    def counting(qu, qw, k, v, p, lens, t_real, **kw):
         calls.append((tuple(qu.shape), tuple(p.shape), lens.tolist(), t_real))
-        return relpos_attention(qu, qw, k, v, p, lens, t_real)
+        return relpos_attention(qu, qw, k, v, p, lens, t_real, **kw)
 
     ref, _ = enc(mel, lengths)
     got, out_len = enc(mel, lengths, attention=counting)

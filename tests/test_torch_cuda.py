@@ -66,6 +66,52 @@ def test_kernel_matches_plain(cuda, B, H, T, Dh, dtype, lengths):
         torch.testing.assert_close(got[b, :, :n], want[b, :, :n], atol=tol, rtol=tol)
 
 
+def _strided_inputs(B, H, T, Dh, dtype, device, seed=0):
+    """The encoder's call: [B, H, T, Dh] views of [B, T, H, Dh] projections and
+    the [H, 2T-1, Dh] view of a [2T-1, H, Dh] position projection."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=device).to(dtype)
+    qu, qw, k, v = (rnd(B, T, H, Dh).transpose(1, 2) for _ in range(4))
+    return qu, qw, k, v, rnd(2 * T - 1, H, Dh).transpose(0, 1)
+
+
+@pytest.mark.parametrize("B,H,T,Dh,dtype,lengths", [
+    (4, 8, 188, 128, torch.bfloat16, [188, 100, 17, 188]),  # the v3 encoder's call
+    (2, 2, 300, 96, torch.bfloat16, [300, 0]),
+    (3, 4, 47, 16, torch.bfloat16, [47, 20, 1]),
+    (2, 4, 47, 16, torch.float32, [47, 20]),  # the trained test-tiny head width
+    (2, 3, 70, 48, torch.float32, [0, 65]),
+])
+def test_kernel_on_strided_views_and_out(cuda, B, H, T, Dh, dtype, lengths):
+    """Strided inputs and the [B, H, T, Dh] view of a [B, T, H, Dh] buffer as
+    `out=`, f32 and bf16: the f32 result matches the plain version on the
+    same views (tolerances of test_kernel_matches_plain), and the bf16 result
+    is the kernel's own f32 result rounded to bf16, bit for bit (both run
+    the same arithmetic up to the store)."""
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-3
+    qu, qw, k, v, p = _strided_inputs(B, H, T, Dh, dtype, cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    want = attn.relpos_attention_plain(qu, qw, k, v, p, lens, T)
+    outs = {}
+    for out_dtype in (torch.float32, torch.bfloat16):
+        buf = torch.full((B, T, H, Dh), float("nan"), dtype=out_dtype, device=cuda)
+        before = attn.relpos_attention.launches
+        got = attn.relpos_attention(qu, qw, k, v, p, lens, T, out=buf.transpose(1, 2))
+        torch.cuda.synchronize()
+        assert attn.relpos_attention.launches == before + 1
+        assert got.data_ptr() == buf.data_ptr() and got.shape == (B, H, T, Dh)
+        assert bool(torch.isfinite(buf).all())  # every row written, padded rows too
+        outs[out_dtype] = got
+    for b, n in enumerate(lengths):
+        n = n or T  # a fully masked row averages over all T keys in both
+        torch.testing.assert_close(outs[torch.float32][b, :, :n], want[b, :, :n], atol=tol,
+                                   rtol=tol)
+    torch.testing.assert_close(outs[torch.bfloat16], outs[torch.float32].bfloat16(),
+                               rtol=0, atol=0)
+    contiguous = attn.relpos_attention(*(x.contiguous() for x in (qu, qw, k, v, p)), lens, T)
+    torch.testing.assert_close(outs[torch.float32], contiguous, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_shift_only_probe(cuda, dtype):
     """q.k = 0: peaked position scores alone pick the key, so a wrong XL
@@ -85,22 +131,32 @@ def test_shift_only_probe(cuda, dtype):
 
 
 @pytest.mark.parametrize("bad", ["float16", "dh8", "dh144", "noncontiguous", "int64_lengths",
-                                 "misaligned"])
+                                 "misaligned", "stride_not_16_bytes", "out_float16",
+                                 "out_noncontiguous", "out_misaligned"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda, bad):
     B, H, T, Dh = 2, 2, 8, 144 if bad == "dh144" else (8 if bad == "dh8" else 32)
     dtype = torch.float16 if bad == "float16" else torch.float32
     qu, qw, k, v, p = _inputs(B, H, T, Dh, dtype, cuda)
     lens = torch.full((B,), T, dtype=torch.int64 if bad == "int64_lengths" else torch.int32,
                       device=cuda)
-    if bad == "noncontiguous":
-        k = torch.randn(B, T, H, Dh, device=cuda).transpose(1, 2)
-    elif bad == "misaligned":  # bf16 rows are read as 16-byte vectors
+    out = None
+    if bad == "noncontiguous":  # the last axis must be contiguous
+        k = torch.randn(B, H, T, 2 * Dh, device=cuda)[..., ::2]
+    elif bad == "misaligned":  # TMA reads from 16-byte boundaries
         flat = torch.zeros(B * H * T * Dh + 1, dtype=torch.bfloat16, device=cuda)
         qu, qw, k, v = (x.bfloat16() for x in (qu, qw, k, v))
         p = p.bfloat16()
         k = flat[1:].view(B, H, T, Dh)
+    elif bad == "stride_not_16_bytes":  # rows of 34 floats: 136 bytes
+        k = torch.randn(B, H, T, Dh + 2, device=cuda)[..., :Dh]
+    elif bad == "out_float16":
+        out = torch.empty(B, H, T, Dh, dtype=torch.float16, device=cuda)
+    elif bad == "out_noncontiguous":
+        out = torch.empty(B, H, T, 2 * Dh, device=cuda)[..., ::2]
+    elif bad == "out_misaligned":
+        out = torch.empty(B * H * T * Dh + 1, device=cuda)[1:].view(B, H, T, Dh)
     with pytest.raises(ValueError):
-        attn.relpos_attention(qu, qw, k, v, p, lens, T)
+        attn.relpos_attention(qu, qw, k, v, p, lens, T, out=out)
 
 
 def test_trained_fixture_encoder_and_transcript_match_cpu(cuda):
