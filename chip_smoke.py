@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py
 
-Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and `nvcc`;
-there is no CPU fallback. It imports nothing of JAX or of the JAX package.
-Phases, one line each; any failure raises and the final line is not printed:
+Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a), `nvcc` and
+a host C++ compiler; there is no CPU fallback. It imports nothing of JAX or
+of the JAX package. Phases, one line each; any failure raises and the final
+line is not printed:
 
   1. device: the card's name and power limit (nvidia-smi), the time to
      build both kernels from `fluidaudio_tpu_torch/csrc/` (one nvcc each, in
-     parallel), and what ptxas reports of the attention kernel and the int8
-     GEMM (registers, spills, shared memory);
+     parallel) and the FLAC decoder from `native/flac/flac.cpp` (the host
+     C++ compiler, beside them), and what ptxas reports of the attention
+     kernel and the int8 GEMM (registers, spills, shared memory);
   2. the rel-pos attention kernel against its plain PyTorch version on the
      card at the v3 shapes (B=4, H=8, T=188, Dh=128, lengths
      [188,100,17,188], bf16; max abs error on valid rows below 0.06), in
@@ -45,7 +47,26 @@ Phases, one line each; any failure raises and the final line is not printed:
      `torch._int_mm`, which are not the same function), the
      v3 encoder at B=128 in bf16 and int8, and the bf16 and int8
      `build_pipeline(128)` RTFx on 15 s windows with the joint blank bias
-     calibrated to 9-12 tokens/s of audio.
+     calibrated to 9-12 tokens/s of audio;
+  8. the streaming path (no kernel of the port is on it: both counts must
+     read 0 after it) on the trained `eou` (320 ms) and `nemotron` (560 ms)
+     fixtures with the JAX evaluation's seeds: every final text the known
+     transcript and the CPU run's tokens and timestamps, EOU and language
+     detect rates >= 0.99, the forced <bb-BB> prefix; multi-stream in
+     lockstep and staggered equal to single-stream on the card; a .flac file
+     through `audio_io` equal to the array input;
+  9. Nemotron-en 0.6B (24 x 1024, 2240 ms) and EOU 120M (17 x 512, 160 ms)
+     streaming encoders at full width with seeded random f32 weights: two
+     carried chunks against one double-length chunk (2e-2), and the card's
+     chunk step against the CPU port's on the same weights (relative L2 of
+     the output and every cache field <= 1e-4); then streaming timing (card
+     name and power limit on every line): one-stream latency per chunk
+     (host wall and CUDA-event span, median of 20) against the chunk's
+     duration for EOU 120M at 160/320 ms and Nemotron-en at 560/2240 ms,
+     kernel launches and device busy time per chunk step (profiler), and
+     Nemotron-en multi-stream at N = 1, 16, 64, 128 streams of 20 s in f32
+     and bf16: ms per tick, audio seconds per wall second, peak memory and
+     the device's idle share over a tick.
 
 The line before the last is the kernel record (JSON, with each kernel's
 launches on its main path, bound and times); the last line is
@@ -65,7 +86,10 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
-TRAINED_ASR = REPO / "fluidaudio_tpu" / "assets" / "trained_tiny" / "asr"
+TRAINED = REPO / "fluidaudio_tpu" / "assets" / "trained_tiny"
+TRAINED_ASR = TRAINED / "asr"
+TRAINED_EOU = TRAINED / "eou"
+TRAINED_NEMOTRON = TRAINED / "nemotron"
 PARITY_TOL = 0.06  # bf16 inputs, f32 math on both sides (scripts/tpu_kernel_parity.py)
 WER_GATE = 0.02
 TARGET_TOK_PER_S = (9.0, 12.0)  # LibriSpeech-like emission band of v3
@@ -89,6 +113,10 @@ INT8_ENCODER_SHAPES = [("fc1", ENCODER_ROWS, 1024, 4096, True, 48),
 INT8_ENCODER_PARITY = [(M, K, N, bias, torch.bfloat16)
                        for _, M, K, N, bias, _ in INT8_ENCODER_SHAPES[:4]]
 INT8_ENCODER_PARITY.append((ENCODER_ROWS + 1, 4096, 1024, True, torch.bfloat16))
+# streaming encoders: chunked against one double chunk (tests/test_streaming_conformer.py),
+# and the card's chunk step against the CPU port's in relative L2 (true f32 on both)
+CHUNKED_TOL = 2e-2
+STREAM_CARD_TOL = 1e-4
 # one NVIDIA H100 SXM (data sheet, dense): HBM rate, bf16 and int8 tensor-core peaks
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -200,6 +228,9 @@ def set_int8_matmul(encoder, fn) -> None:
 
 
 def phase_device(attn, i8) -> str:
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fluidaudio_tpu_torch.native import flac
     from fluidaudio_tpu_torch.ops import build
 
     smi = subprocess.run(
@@ -207,12 +238,18 @@ def phase_device(attn, i8) -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
-    built = build.build(attn.KERNEL_SOURCE, i8.KERNEL_SOURCE)
+    with ThreadPoolExecutor(1) as pool:  # the host C++ build beside the two nvcc
+        flac_build = pool.submit(flac.build_library)
+        built = build.build(attn.KERNEL_SOURCE, i8.KERNEL_SOURCE)
+        flac_lib, flac_s = flac_build.result()
+    cxx = subprocess.run([flac.compiler(), "--version"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.splitlines()[0]
     attn_lib = attn.load_library()
     lib = i8.load_library()
     builds = " | ".join(f"{name} {sec:.2f} s" for name, (sec, _) in built.items())
     print(f"phase 1 device: {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
-          f"| kernel builds (parallel nvcc): {builds}")
+          f"| kernel builds (parallel nvcc): {builds} | FLAC decoder {flac_lib.name} "
+          f"({cxx}, {' '.join(flac.CXX_FLAGS)}): {flac_s:.2f} s")
     report = ptxas_report(built[attn.KERNEL_SOURCE.name][1], "relpos_attention_wgmma")
     print(f"phase 1 relpos_attention_wgmma (nvcc -Xptxas -v): "
           f"{report or 'built before this run'} | dynamic shared memory "
@@ -607,6 +644,494 @@ def time_pipeline(device, smi: str, models, manager, batch: int = 128) -> float:
     return rtfx
 
 
+# ------------------------------------------------------- streaming phases
+
+
+def flac_bytes(pcm: np.ndarray, sample_rate: int = 16_000, block: int = 4096) -> bytes:
+    """int16 mono PCM -> a FLAC stream of verbatim subframes (STREAMINFO, then
+    frames with a 16-bit block size; CRCs zero, the decoder does not check
+    them), so the FLAC input path can be driven without an encoder."""
+    bits, acc, out = 0, 0, bytearray(b"fLaC")
+
+    def put(value: int, n: int) -> None:
+        nonlocal bits, acc
+        acc = (acc << n) | (value & ((1 << n) - 1))
+        bits += n
+        while bits >= 8:
+            bits -= 8
+            out.append((acc >> bits) & 0xFF)
+        acc &= (1 << bits) - 1
+
+    x = np.asarray(pcm, np.int16).astype(np.int64)
+    put(1, 1); put(0, 7); put(34, 24)  # last metadata block: STREAMINFO, 34 bytes
+    put(block, 16); put(block, 16); put(0, 24); put(0, 24)
+    put(sample_rate, 20); put(0, 3); put(15, 5); put(x.size, 36); put(0, 64); put(0, 64)
+    for index, start in enumerate(range(0, x.size, block)):
+        frame = x[start:start + block]
+        put(0x3FFE, 14); put(0, 2); put(7, 4); put(0, 4); put(0, 4); put(0b100, 3); put(0, 1)
+        if index < 0x80:  # the frame number, UTF-8 coded
+            put(index, 8)
+        else:
+            put(0xC0 | (index >> 6), 8); put(0x80 | (index & 0x3F), 8)
+        put(frame.size - 1, 16); put(0, 8)  # block size - 1, header CRC-8
+        put(0, 1); put(1, 6); put(0, 1)  # verbatim subframe, no wasted bits
+        for v in frame:
+            put(int(v), 16)
+        if bits:
+            put(0, 8 - bits)
+        put(0, 16)  # frame CRC-16
+    return bytes(out)
+
+
+def eou_fixture_utterances(seed: int = 2468, n: int = 6):
+    """The draws of the JAX package's `eval_eou_fixture`: (reference text,
+    audio followed by 1.28 s of open-mic silence)."""
+    from fluidaudio_tpu_torch.train import tiny_corpus as tc
+
+    rs = np.random.RandomState(seed)
+    tail = np.zeros(int(1.28 * 16_000), np.float32)
+    out = []
+    for _ in range(n):
+        ids = rs.randint(0, tc.N_WORDS, size=int(rs.randint(2, 8)))
+        out.append((tc.transcript_text(ids), np.concatenate([tc.make_utterance(ids, rs), tail])))
+    return out
+
+
+def nemotron_fixture_utterances(seed: int = 9753, n: int = 6):
+    """The draws of `eval_nemotron_fixture`: (language, reference, audio),
+    alternating the fixture's two languages."""
+    from fluidaudio_tpu_torch.train import tiny_corpus as tc
+
+    rs = np.random.RandomState(seed)
+    out = []
+    for u in range(n):
+        lang = "a" if u % 2 == 0 else "b"
+        ids = rs.randint(0, tc.N_WORDS, size=int(rs.randint(2, 8)))
+        audio = tc.make_utterance(ids, rs, lang=lang)
+        words = (tc.word_text(i) if lang == "a" else tc.word_text_b(i) for i in ids)
+        out.append(("aa-AA" if lang == "a" else "bb-BB", " ".join(words), audio))
+    return out
+
+
+def fixture_managers(dev):
+    """The port's managers on the trained `eou` (320 ms) and `nemotron`
+    (560 ms, auto) fixtures on `dev`."""
+    from fluidaudio_tpu_torch.asr.streaming_eou import EOU_TEST, StreamingEouAsrManager
+    from fluidaudio_tpu_torch.asr.streaming_nemotron import (
+        NEMOTRON_TEST, StreamingNemotronAsrManager)
+
+    eou = StreamingEouAsrManager(chunk_ms=320, spec=EOU_TEST, checkpoint_dir=TRAINED_EOU,
+                                 device=dev)
+    nem = StreamingNemotronAsrManager(NEMOTRON_TEST, 560, language="auto",
+                                      enc_cfg=EOU_TEST.enc_cfg,
+                                      checkpoint_dir=TRAINED_NEMOTRON, device=dev)
+    return eou, nem
+
+
+def run_stream(mgr, audio, language=None, forced_prefix=None):
+    """One utterance through the single-stream path -> (state, partials, final)."""
+    if language is not None:
+        mgr.set_language(language)
+    state = mgr.make_state() if forced_prefix is None else mgr.make_state(forced_prefix)
+    partials = mgr.process(audio, state)
+    return state, partials, mgr.finish(state)
+
+
+def serve(mgr, session, audios, steps=None):
+    """Feed a multi-stream session in lockstep (steps None) or in unequal
+    slices per stream; flush -> (finals, partials per stream)."""
+    partials = [[] for _ in audios]
+    if steps is None:
+        partials = mgr.process_multi(session, audios)
+    else:
+        offsets = [0] * len(audios)
+        while any(o < a.size for o, a in zip(offsets, audios)):
+            feed = [a[o:o + s] if o < a.size else None
+                    for a, o, s in zip(audios, offsets, steps)]
+            offsets = [o + s for o, s in zip(offsets, steps)]
+            for i, p in enumerate(mgr.process_multi(session, feed)):
+                partials[i].extend(p)
+    return mgr.flush_multi(session), partials
+
+
+def same_tokens(a, b) -> bool:
+    return a.token_ids == b.token_ids and a.timestamps_ms == b.timestamps_ms
+
+
+def phase_streaming_fixtures(attn, i8, device) -> dict:
+    """The streaming main path on the trained fixtures: the EOU and Nemotron
+    managers on the card with the JAX evaluation's seeds and loops, against
+    the known transcripts and the same managers on the CPU; multi-stream in
+    lockstep and staggered against single-stream on the card; a .flac file
+    through `audio_io`. Neither kernel is on this path: every count is set
+    to 0 before it and must read 0 after. -> {kernel: launches}."""
+    import tempfile
+
+    from fluidaudio_tpu_torch.metrics.wer import wer
+    from fluidaudio_tpu_torch.utils import audio_io
+
+    eou, nem = fixture_managers(device)
+    eou_cpu, nem_cpu = fixture_managers("cpu")
+    events = []
+    eou.on_eou = events.append
+    torch.cuda.synchronize()
+    reset_launches(attn.relpos_attention, i8.int8_matmul_fused)
+
+    rates, detected = [], 0
+    for ref, audio in eou_fixture_utterances():
+        events.clear()
+        _, _, final = run_stream(eou, audio)
+        rates.append(wer(ref, final.text).rate)
+        detected += bool(events)
+        check(final.text == ref, f"EOU fixture on card: {final.text!r} != {ref!r}")
+        check(same_tokens(final, run_stream(eou_cpu, audio)[2]),
+              f"EOU fixture: card tokens/timestamps differ from the CPU's for {ref!r}")
+    eou_wer, eou_rate = float(np.mean(rates)), detected / len(rates)
+    check(eou_wer <= WER_GATE and eou_rate >= 0.99,
+          f"EOU fixture WER {eou_wer} / EOU detect rate {eou_rate}")
+
+    rates, detected = [], 0
+    for lang, ref, audio in nemotron_fixture_utterances():
+        _, _, final = run_stream(nem, audio, lang)
+        rates.append(wer(ref, final.text).rate)
+        check(final.text == ref, f"Nemotron fixture ({lang}) on card: {final.text!r} != {ref!r}")
+        check(same_tokens(final, run_stream(nem_cpu, audio, lang)[2]),
+              f"Nemotron fixture: card tokens/timestamps differ from the CPU's for {ref!r}")
+        state, _, _ = run_stream(nem, audio, "auto")
+        detected += state.detected_language == lang
+    nem_wer, lang_rate = float(np.mean(rates)), detected / len(rates)
+    check(nem_wer <= WER_GATE and lang_rate >= 0.99,
+          f"Nemotron fixture WER {nem_wer} / language detect rate {lang_rate}")
+
+    from fluidaudio_tpu_torch.train import tiny_corpus as tc
+
+    rs = np.random.RandomState(91)  # the forced-prefix draw of the JAX fixture test
+    ids = rs.randint(0, tc.N_WORDS, size=4)
+    bb_audio = tc.make_utterance(ids, rs, lang="b")
+    tag = nem.lang_tag_token("bb-BB")
+    _, _, forced = run_stream(nem, bb_audio, "auto", forced_prefix=tag)
+    want = " ".join(tc.word_text_b(int(i)) for i in ids)
+    check(forced.text == want, f"forced <bb-BB> prefix: {forced.text!r} != {want!r}")
+
+    # multi-stream on the card against single-stream on the card
+    eou.on_eou = None
+    utts = [a for _, a in eou_fixture_utterances(seed=97, n=3)]
+    singles = [run_stream(eou, a) for a in utts]
+    for steps in (None, [7000, 3000, 12000]):
+        finals, partials = serve(eou, eou.make_multi_state(3), utts, steps)
+        for i, (_, ref_partials, ref_final) in enumerate(singles):
+            check(same_tokens(finals[i], ref_final) and
+                  [p.eou_detected for p in partials[i]] == [p.eou_detected for p in ref_partials],
+                  f"EOU multi-stream ({'lockstep' if steps is None else 'staggered'}) stream {i} "
+                  "differs from single-stream")
+    langs = ["aa-AA", "bb-BB", "auto", "aa-AA"]
+    utts = [a for _, _, a in nemotron_fixture_utterances(seed=5151, n=4)]
+    singles = [run_stream(nem, a, lang) for a, lang in zip(utts, langs)]
+    for steps in (None, [9000, 4000, 13000, 6000]):
+        session = nem.make_multi_state(4, languages=langs)
+        finals, _ = serve(nem, session, utts, steps)
+        for i, (state, _, ref_final) in enumerate(singles):
+            check(same_tokens(finals[i], ref_final)
+                  and session.streams[i].detected_language == state.detected_language,
+                  f"Nemotron multi-stream stream {i} differs from single-stream")
+
+    # FLAC input: the first EOU utterance as a .flac file
+    ref, audio = eou_fixture_utterances(n=1)[0]
+    pcm = np.clip(np.round(audio * 32768.0), -32768, 32767).astype(np.int16)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "utterance.flac"
+        path.write_bytes(flac_bytes(pcm))
+        from_flac, rate = audio_io.read_audio(path)
+    check(rate == 16_000 and np.array_equal(from_flac[:, 0], pcm / np.float32(32768.0)),
+          "the .flac read back differs from its PCM")
+    flac_final = run_stream(eou, from_flac[:, 0])[2]
+    check(flac_final.text == ref and same_tokens(flac_final, run_stream(eou, pcm / 32768.0)[2]),
+          f"EOU on the .flac input: {flac_final.text!r}")
+
+    torch.cuda.synchronize()
+    launches = {"relpos_attention": attn.relpos_attention.launches,
+                "int8_matmul_fused": i8.int8_matmul_fused.launches}
+    check(not any(launches.values()), f"the streaming path launched {launches}: it has no kernel")
+    print(f"phase 8 streaming fixtures on card: EOU 320 ms x6 WER {eou_wer:.4f}, EOU detect "
+          f"rate {eou_rate:.2f} | Nemotron 560 ms x6 WER {nem_wer:.4f}, language detect rate "
+          f"{lang_rate:.2f}, forced <bb-BB> prefix {forced.text!r} | every text the known "
+          f"transcript, tokens and timestamps equal to the CPU run | multi-stream (EOU x3, "
+          f"Nemotron x4 per-stream prompts) lockstep and staggered == single-stream | .flac "
+          f"input == array input | kernel launches on this path {launches}")
+    return launches
+
+
+def stream_mel_chunks(mgr_mel, chunk_samples: int, n_chunks: int, rs, device):
+    """Speech-like audio cut as the managers cut it -> n_chunks mel chunks
+    [1, 128, chunk_samples / 160] (look-ahead windows, last sample carried)."""
+    audio = speechlike(rs, (n_chunks * chunk_samples + 240) / 16_000)
+    chunks, last = [], 0.0
+    for i in range(n_chunks):
+        window = torch.from_numpy(audio[i * chunk_samples:(i + 1) * chunk_samples + 240])
+        mel, _ = mgr_mel(window[None].to(device),
+                         last_samples=torch.tensor([last], device=device))
+        chunks.append(mel[:, :, :chunk_samples // 160])
+        last = float(audio[(i + 1) * chunk_samples - 1])
+    return chunks
+
+
+def phase_streaming_full_width(device, name: str, enc_cfg, chunk_ms: int) -> str:
+    """One full-width streaming encoder (seeded random f32 weights): on the
+    card, two chunks carried against one double-length chunk; and the card's
+    chunk step against the CPU port's on the same weights and mel, for 2
+    chunks at 1 stream (relative L2 of the output and of every cache
+    field)."""
+    import copy
+
+    from fluidaudio_tpu_torch.models.conformer_streaming import (
+        StreamingConformerEncoder, init_caches)
+    from fluidaudio_tpu_torch.models.zoo import random_init_
+    from fluidaudio_tpu_torch.ops.mel import MelConfig, MelFrontend
+
+    cpu_enc = StreamingConformerEncoder(enc_cfg).eval()
+    random_init_(cpu_enc, torch.Generator().manual_seed(0))
+    card_enc = copy.deepcopy(cpu_enc).to(device)
+    chunk_samples = chunk_ms * 16
+    mel = stream_mel_chunks(MelFrontend(MelConfig(center=False, normalize=None), device="cpu"),
+                            chunk_samples, 2, np.random.RandomState(chunk_ms), "cpu")
+
+    caches = init_caches(enc_cfg, 1, device)
+    outs = []
+    for m in mel:
+        out, caches = card_enc(m.to(device), caches)
+        outs.append(out)
+    chunked = torch.cat(outs, dim=1)
+    full, _ = card_enc(torch.cat(mel, dim=2).to(device), init_caches(enc_cfg, 1, device))
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(full).all()), f"{name}: encoder output not finite")
+    chunk_err = (chunked - full).abs().max().item()
+    check(torch.allclose(chunked, full, rtol=CHUNKED_TOL, atol=CHUNKED_TOL),
+          f"{name}: two carried chunks vs one double chunk max abs {chunk_err}")
+
+    card_c, cpu_c = init_caches(enc_cfg, 1, device), init_caches(enc_cfg, 1, "cpu")
+    worst = {}
+    for m in mel:
+        got, card_c = card_enc(m.to(device), card_c)
+        want, cpu_c = cpu_enc(m, cpu_c)
+        pairs = [("enc", got, want)] + [(f, getattr(card_c, f), getattr(cpu_c, f))
+                                        for f in ("pre_cache", "channel", "time")]
+        for field, g, w in pairs:
+            worst[field] = max(worst.get(field, 0.0), rel_l2(g.float().cpu(), w.float()))
+        check(torch.equal(card_c.channel_len.cpu(), cpu_c.channel_len), f"{name}: channel_len")
+    check(max(worst.values()) <= STREAM_CARD_TOL,
+          f"{name}: card vs CPU relative L2 {worst} > {STREAM_CARD_TOL}")
+    errs = ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+    line = (f"{name} ({enc_cfg.n_layers}x{enc_cfg.d_model}, {enc_cfg.n_heads} heads, C="
+            f"{enc_cfg.att_context_left}, f32) {chunk_ms} ms: 2 carried chunks vs 1 double "
+            f"chunk on card max abs {chunk_err:.3e} (tol {CHUNKED_TOL}) | card vs CPU, 1 stream "
+            f"x 2 chunks, relative L2: {errs} (tol {STREAM_CARD_TOL}), channel_len equal")
+    return line
+
+
+def busy_ms(kernels) -> float:
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    total, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total / 1e3
+
+
+def profile_calls(fn, n: int) -> tuple[float, float]:
+    """torch.profiler over n calls of fn -> (kernel launches per call, device
+    busy ms per call). Copies and memsets are busy time, not launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(bool(device), "the profiler recorded no device time")
+    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
+    return len(kernels) / n, busy_ms(device) / n
+
+
+def calibrate_stream_blank_bias(mgr, rs, chunks: int, streams: int = 8) -> float:
+    """Bisect the joint's blank-logit bias until the streaming decode emits
+    9-12 tokens per second of speech-like audio over `streams` streams of
+    `chunks` chunks each, the length of the run it calibrates for (a random
+    model's emission rate drifts as its caches fill); higher bias, fewer
+    emissions. Sets it in place -> the tokens/s reached."""
+    audios = [speechlike(rs, (chunks * mgr.chunk_samples + 240) / 16_000)
+              for _ in range(streams)]
+    seconds = streams * chunks * mgr.chunk_ms / 1000
+    bias, blank = mgr.joint.out.bias, mgr.dcfg.blank_id
+    lo, hi, tps = -12.0, 12.0, 0.0
+    for _ in range(12):
+        mid = 0.5 * (lo + hi)
+        with torch.no_grad():
+            bias[blank] = mid
+        session = mgr.make_multi_state(streams)
+        mgr.process_multi(session, audios)
+        tps = sum(len(s.tokens) for s in session.streams) / seconds
+        if TARGET_TOK_PER_S[0] <= tps <= TARGET_TOK_PER_S[1]:
+            break
+        lo, hi = (mid, hi) if tps > TARGET_TOK_PER_S[1] else (lo, mid)
+    return tps
+
+
+def time_stream_latency(smi: str, name: str, mgr, chunks: int = 20) -> None:
+    """One stream, one chunk per `process` call after 3 warm-up chunks: host
+    wall (median) and the CUDA-event span of the same call (median) against
+    the chunk's own duration; then kernel launches and device busy time per
+    chunk step from the profiler over 5 more chunks."""
+    rs = np.random.RandomState(mgr.chunk_ms)
+    n = 3 + chunks + 5
+    audio = speechlike(rs, (n * mgr.chunk_samples + 240) / 16_000)
+    state = mgr.make_state()
+    mgr.process(audio[:240], state)  # the look-ahead, so each call below runs one chunk
+    pieces = iter(audio[240 + i * mgr.chunk_samples:240 + (i + 1) * mgr.chunk_samples]
+                  for i in range(n))
+    for _ in range(3):
+        mgr.process(next(pieces), state)
+    walls, spans, emitted = [], [], []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(chunks):
+        piece = next(pieces)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        done = mgr.process(piece, state)
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        spans.append(start.elapsed_time(end))
+        check(len(done) == 1, "one chunk per call")
+        emitted.append(len(done[0].token_ids))
+    launches, busy = profile_calls(lambda: mgr.process(next(pieces), state), 5)
+    wall = float(np.median(walls))
+    print(f"timing [{smi}] streaming latency {name} {mgr.chunk_ms} ms chunks, 1 stream, f32: "
+          f"median wall {wall:.3f} ms per chunk (CUDA-event span {np.median(spans):.3f} ms), "
+          f"{wall / mgr.chunk_ms:.4f} of the chunk's duration | {launches:.1f} kernel launches "
+          f"and {busy:.3f} ms device busy per chunk step (profiler), idle share "
+          f"{max(0.0, 1 - busy / wall):.3f} | tokens per timed chunk: mean "
+          f"{np.mean(emitted):.2f}, max {max(emitted)} "
+          f"({sum(emitted) / (chunks * mgr.chunk_ms / 1000):.2f} tok/s of audio)")
+
+
+def time_multistream(device, smi: str, mgr, label: str, counts=(1, 16, 64, 128),
+                     seconds: float = 20.0) -> None:
+    """N streams of speech-like audio through one multi-stream session in
+    lockstep: ms per tick, audio seconds served per wall second, peak memory,
+    decode loop steps per tick (joint calls); then one more steady tick under
+    the profiler (launches, device busy, idle share against the unprofiled
+    tick), and the encoder chunk step alone at batch N (CUDA events)."""
+    rs = np.random.RandomState(20)
+    pool = [speechlike(rs, seconds) for _ in range(max(counts))]
+    ticks, steps = [0], [0]
+    serve_tick = mgr._serve_tick
+
+    def counting_tick(*args):
+        ticks[0] += 1
+        return serve_tick(*args)
+
+    mgr._serve_tick = counting_tick
+    hook = mgr.joint.register_forward_pre_hook(lambda *_: steps.__setitem__(0, steps[0] + 1))
+    try:
+        for n in counts:
+            audios = pool[:n]
+            warm = mgr.make_multi_state(n)
+            mgr.process_multi(warm, [a[:mgr._need] for a in audios])  # one warm-up tick
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            session = mgr.make_multi_state(n)
+            ticks[0] = steps[0] = 0
+            t0 = time.perf_counter()
+            partials = mgr.process_multi(session, audios)
+            mgr.flush_multi(session)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_ticks, n_steps = ticks[0], steps[0]
+            per_tick = wall / n_ticks * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            tokens = sum(len(s.tokens) for s in session.streams)
+            burst = max(len(p.token_ids) for ps in partials for p in ps)
+            # a steady tick: the same streams, one more chunk each
+            launches, busy = profile_calls(lambda: mgr.process_multi(
+                session, [a[-mgr.chunk_samples:] for a in audios]), 1)
+            win = torch.from_numpy(np.stack([a[:mgr._need] for a in audios])).to(device)
+            mel = mgr._mel_chunk(win, torch.zeros(n, device=device))
+            pid = torch.from_numpy(session.prompt_ids).to(device)
+            enc_ms = cuda_ms(lambda: mgr._apply_encoder(mel, session.caches, pid), iters=5)
+            print(f"timing [{smi}] multi-stream {label} {mgr.chunk_ms} ms chunks, N={n} x "
+                  f"{seconds:.0f} s: {n_ticks} ticks, {per_tick:.2f} ms per tick "
+                  f"({'real time' if per_tick < mgr.chunk_ms else 'NOT real time'} against "
+                  f"{mgr.chunk_ms} ms of audio per tick), {n * seconds / wall:.1f} audio s per "
+                  f"wall s, peak mem {peak:.2f} GiB, {n_steps / n_ticks:.1f} decode loop steps "
+                  f"per tick | one steady tick: {launches:.0f} kernel launches, device busy "
+                  f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / per_tick):.3f} | encoder "
+                  f"chunk step alone at N={n}: {enc_ms:.2f} ms (CUDA events) | "
+                  f"{tokens / (n * seconds):.2f} tok/s of audio, at most {burst} tokens in one "
+                  f"stream's chunk (the decode loop runs to the busiest row)")
+    finally:
+        mgr._serve_tick = serve_tick
+        hook.remove()
+
+
+def streaming_full_width(attn, i8, device, smi: str) -> None:
+    """Phase 9 (parity at full width) and the streaming timing lines, with
+    every kernel count set to 0 before and read after (the streaming path
+    launches neither kernel)."""
+    import dataclasses
+
+    from fluidaudio_tpu_torch.asr.streaming_eou import EOU_DEFAULT, StreamingEouAsrManager
+    from fluidaudio_tpu_torch.asr.streaming_nemotron import (
+        NEMOTRON_EN, StreamingNemotronAsrManager)
+    from fluidaudio_tpu_torch.models.conformer_streaming import (
+        EOU_120M, NEMOTRON_EN as NEMOTRON_EN_ENC)
+    from fluidaudio_tpu_torch.utils.weights import load_state
+
+    torch.cuda.synchronize()
+    reset_launches(attn.relpos_attention, i8.int8_matmul_fused)
+    lines = [phase_streaming_full_width(device, "Nemotron-en 0.6B", NEMOTRON_EN_ENC, 2240),
+             phase_streaming_full_width(device, "EOU 120M", EOU_120M, 160)]
+    print(f"phase 9 streaming encoders at full width: {' | '.join(lines)}")
+
+    rs = np.random.RandomState(7)
+    eou = {ms: StreamingEouAsrManager(ms, spec=EOU_DEFAULT, device=device) for ms in (160, 320)}
+    nem = {ms: StreamingNemotronAsrManager(NEMOTRON_EN, ms, device=device) for ms in (560, 2240)}
+    # each manager calibrated over about the length of its timed run: 16 of
+    # the 28 chunks of a latency run, 20 s (9 chunks) for the 2240 ms
+    # multi-stream runs
+    tps = {f"EOU 120M {ms} ms": calibrate_stream_blank_bias(m, rs, 16) for ms, m in eou.items()}
+    tps["Nemotron-en 560 ms"] = calibrate_stream_blank_bias(nem[560], rs, 16)
+    tps["Nemotron-en 2240 ms"] = calibrate_stream_blank_bias(nem[2240], rs, 9)
+    print(f"timing [{smi}] streaming managers at full width, seeded random weights, joint blank "
+          f"bias calibrated on 8 streams of speech-like audio to tok/s: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in tps.items()))
+    for mgr in eou.values():
+        time_stream_latency(smi, "EOU 120M", mgr)
+    for mgr in nem.values():
+        time_stream_latency(smi, "Nemotron-en 0.6B", mgr)
+    del eou, nem[560]
+
+    f32 = nem[2240]
+    time_multistream(device, smi, f32, "Nemotron-en 0.6B f32")
+    bf16 = StreamingNemotronAsrManager(
+        NEMOTRON_EN, 2240, device=device,
+        enc_cfg=dataclasses.replace(f32.enc_cfg, dtype="bfloat16"))
+    for part in ("encoder", "predictor", "joint"):
+        load_state(getattr(bf16, part), getattr(f32, part).state_dict())
+    del f32, nem
+    torch.cuda.empty_cache()
+    time_multistream(device, smi, bf16, "Nemotron-en 0.6B bf16")
+    torch.cuda.synchronize()
+    launches = {"relpos_attention": attn.relpos_attention.launches,
+                "int8_matmul_fused": i8.int8_matmul_fused.launches}
+    check(not any(launches.values()), f"the streaming path launched {launches}: it has no kernel")
+    print(f"phase 9 streaming path at full width (EOU 120M, Nemotron-en 0.6B f32 and bf16): "
+          f"kernel launches {launches}, as neither kernel is on it")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU", file=sys.stderr)
@@ -627,6 +1152,10 @@ def main() -> int:
     time_encoders(attn, device, smi, bf16_models, int8_models)
     time_pipeline(device, smi, bf16_models, bf16_manager)
     time_pipeline(device, smi, int8_models, int8_manager)
+    del bf16_models, bf16_manager, int8_models, int8_manager
+    torch.cuda.empty_cache()
+    phase_streaming_fixtures(attn, i8, device)
+    streaming_full_width(attn, i8, device, smi)
     print(json.dumps({"kernels": [{
         "name": "relpos_attention",
         "route": "cuda",

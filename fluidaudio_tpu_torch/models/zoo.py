@@ -92,10 +92,10 @@ def disable_tf32() -> None:
 @torch.no_grad()
 def random_init_(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded init in place: LeCun-normal weights (flax's Dense/Conv default),
-    zero biases, unit norms, N(0, 0.02) embeddings."""
+    zero biases, unit norms, N(0, 0.02) embeddings and prompt tables."""
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf == "embedding":
+        if leaf in ("embedding", "prompt_embed"):
             p.copy_(torch.randn(p.shape, generator=generator, device=p.device) * 0.02)
         elif leaf == "weight" and p.ndim >= 2:
             fan_in = p[0].numel()

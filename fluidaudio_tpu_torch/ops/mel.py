@@ -3,7 +3,8 @@
 Port of `fluidaudio_tpu/ops/mel.py::MelFrontend` (the NeMo
 AudioToMelSpectrogramPreprocessor recipe):
   - preemphasis 0.97 (seedable with the previous chunk's last sample)
-  - center zero-padding by n_fft/2 ('constant', NOT reflect)
+  - center zero-padding by n_fft/2 ('constant', NOT reflect), or none
+    (`center=False`, the streaming frontend)
   - symmetric Hann window of win_length=400 centered inside the n_fft=512 frame
   - power spectrum |DFT|^2, 257 bins
   - Slaney-normalized mel filterbank, 128 bins, fmin 0, fmax sr/2
@@ -197,12 +198,14 @@ class MelFrontend:
         T = cfg.num_frames(N)
         off = (cfg.n_fft - cfg.win_length) // 2
         nb = cfg.n_freq_bins
-        # frame t covers xp[t*hop + off : t*hop + off + win]; zero tail so
-        # every frame is in range (the JAX gather clamps to the last sample,
-        # which is center-pad zero whenever it is reached)
+        # frame t covers xp[t*hop + off : t*hop + off + win]. Past the end the
+        # JAX gather clamps its index to the last sample, so the tail repeats
+        # that sample: it is a center-pad zero with center=True, but a real
+        # sample in the streaming (center=False) frontend, whose last frame
+        # reaches `off` samples past the window
         need = off + (T - 1) * cfg.hop_length + cfg.win_length
         if need > xp.shape[1]:
-            xp = torch.nn.functional.pad(xp, (0, need - xp.shape[1]))
+            xp = torch.cat([xp, xp[:, -1:].expand(B, need - xp.shape[1])], dim=1)
         frames = xp[:, off:need].unfold(1, cfg.win_length, cfg.hop_length)  # [B, T, win]
         spec = torch.matmul(frames, self._dft)  # [B, T, 2*bins], true f32
         power = spec[..., :nb] ** 2 + spec[..., nb:] ** 2

@@ -3,8 +3,8 @@
 Behavioral parity: reference `Shared/AudioConverter.swift:458-517` (`AudioWAV.data`
 writer) and the AVAudioFile read paths (which handle wav AND flac through the
 OS decoder). Supports PCM 8/16/24/32-bit int and 32/64-bit float WAV, mono or
-multichannel. FLAC input raises ValueError: the native decoder
-(`native/flac/flac.cpp`) is not wired into this package yet.
+multichannel; FLAC decodes via the native library (`native/flac.py`, built
+from `native/flac/flac.cpp`).
 Float reads return float32 in [-1, 1]; `read_audio_raw` preserves int16 for
 the half-bytes device-transfer path.
 """
@@ -34,11 +34,9 @@ def read_audio_raw(path: str | Path) -> tuple[np.ndarray, int]:
     with open(path, "rb") as f:
         magic = f.read(4)
     if magic == b"fLaC":
-        # the native FLAC decoder has not been ported to this package yet
-        raise ValueError(
-            f"FLAC input is not supported by fluidaudio_tpu_torch yet: {path} "
-            "(convert it to WAV, or pass a sample array)"
-        )
+        from fluidaudio_tpu_torch.native.flac import read_flac_raw
+
+        return read_flac_raw(path)
     return read_wav_raw(path)
 
 

@@ -13,7 +13,7 @@ and maps each to a torch `state_dict` key and layout:
   (K contiguous, the layout the int8 kernel reads), `kernel_scale [1, out]`
   f32 -> `weight_scale [out]`
 - everything else (`bias`, `bn_scale`/`bn_bias`, `pos_bias_u`/`pos_bias_v`,
-  `embedding`) keeps its name and layout.
+  `embedding`, the Nemotron `prompt_embed` table) keeps its name and layout.
 
 The leading `params` collection is dropped and '/' becomes '.', so
 `params/block0/mhsa/q/kernel` lands on `block0.mhsa.q.weight`.

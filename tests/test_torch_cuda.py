@@ -294,3 +294,85 @@ def test_int8_linear_on_the_card_launches_once_per_call(cuda):
     want = i8.int8_matmul_fused_plain(x.reshape(-1, 64), layer.weight_q, layer.weight_scale,
                                       layer.bias, torch.bfloat16).reshape(3, 7, 48)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# ------------------------------------------------------------ streaming ASR
+
+TRAINED = TRAINED_ASR.parent
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 3e-2)])
+def test_streaming_chunk_step_matches_cpu(cuda, dtype, tol):
+    """The cache-aware encoder's chunk step on the card against the CPU on
+    the same weights and mel, 3 carried chunks at 2 streams: relative L2 of
+    the output and every cache field (true f32: 1e-4; bf16 rounds each
+    matmul and LayerNorm output to 8 bits, at other points on each side)."""
+    import copy
+
+    from fluidaudio_tpu_torch.models import conformer_streaming as cs
+    from fluidaudio_tpu_torch.models.zoo import random_init_
+
+    cfg = cs.StreamingConformerConfig(d_model=256, n_layers=3, n_heads=2,
+                                      subsampling_channels=64, dtype=dtype)
+    cpu_enc = cs.StreamingConformerEncoder(cfg).eval()
+    random_init_(cpu_enc, torch.Generator().manual_seed(0))
+    card_enc = copy.deepcopy(cpu_enc).to(cuda)
+    rs = np.random.RandomState(0)
+    card_c, cpu_c = cs.init_caches(cfg, 2, cuda), cs.init_caches(cfg, 2, "cpu")
+    for T in (56, 56, 16):
+        mel = torch.from_numpy(rs.randn(2, 128, T).astype(np.float32))
+        got, card_c = card_enc(mel.to(cuda), card_c)
+        want, cpu_c = cpu_enc(mel, cpu_c)
+        for g, w in [(got, want), *((getattr(card_c, f), getattr(cpu_c, f))
+                                    for f in ("pre_cache", "channel", "time"))]:
+            g, w = g.float().cpu(), w.float()
+            assert float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w)) <= tol
+        assert torch.equal(card_c.channel_len.cpu(), cpu_c.channel_len)
+
+
+def _streaming_fixture_managers(device):
+    from fluidaudio_tpu_torch.asr import streaming_eou as se
+    from fluidaudio_tpu_torch.asr import streaming_nemotron as sn
+
+    eou = se.StreamingEouAsrManager(chunk_ms=320, spec=se.EOU_TEST,
+                                    checkpoint_dir=TRAINED / "eou", device=device)
+    nem = sn.StreamingNemotronAsrManager(sn.NEMOTRON_TEST, 560, enc_cfg=se.EOU_TEST.enc_cfg,
+                                         checkpoint_dir=TRAINED / "nemotron", device=device)
+    return eou, nem
+
+
+def test_streaming_fixtures_on_card_match_cpu(cuda):
+    """The trained EOU and Nemotron managers on the card give the CPU's
+    tokens and timestamps and the known transcripts; a 3-stream session on
+    the card gives each stream's single-stream result."""
+    from fluidaudio_tpu_torch.train import tiny_corpus as tc
+
+    on_card, on_cpu = _streaming_fixture_managers(cuda), _streaming_fixture_managers("cpu")
+    rs = np.random.RandomState(2468)
+    tail = np.zeros(20_480, np.float32)
+    utts, refs = [], []
+    for lang in ("a", "b", "a"):
+        ids = rs.randint(0, tc.N_WORDS, size=int(rs.randint(2, 8)))
+        utts.append(np.concatenate([tc.make_utterance(ids, rs, lang=lang), tail]))
+        refs.append(" ".join(tc.word_text(i) if lang == "a" else tc.word_text_b(i) for i in ids))
+    for k, (card, cpu) in enumerate(zip(on_card, on_cpu)):
+        finals = []
+        for i, a in enumerate(utts):
+            if k == 0 and i == 1:
+                continue  # the EOU fixture knows language a only
+            if k == 1:
+                card.set_language("bb-BB" if i == 1 else "aa-AA")
+                cpu.set_language("bb-BB" if i == 1 else "aa-AA")
+            got, want = card.make_state(), cpu.make_state()
+            card.process(a, got)
+            cpu.process(a, want)
+            f, w = card.finish(got), cpu.finish(want)
+            assert f.token_ids == w.token_ids and f.timestamps_ms == w.timestamps_ms
+            assert f.text == refs[i]
+            finals.append(f)
+        if k == 0:
+            session = card.make_multi_state(2)
+            card.process_multi(session, [utts[0], utts[2]])
+            multi = card.flush_multi(session)
+            assert [m.token_ids for m in multi] == [f.token_ids for f in finals]
+            assert [m.timestamps_ms for m in multi] == [f.timestamps_ms for f in finals]

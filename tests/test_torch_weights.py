@@ -1,6 +1,7 @@
 """npz weight loading of the PyTorch port, and its independence from JAX.
 
-Every key of the trained `test-tiny` checkpoints is consumed by the port's
+Every key of the trained `test-tiny` checkpoints and of the streaming `eou`
+and `nemotron` fixtures (encoder, predictor, joint) is consumed by the port's
 modules, each lands in the torch layout, and a missing, extra or mis-shaped
 key raises. The port's package must import no JAX.
 """
@@ -13,9 +14,12 @@ import numpy as np
 import pytest
 
 from fluidaudio_tpu.train.fixtures import trained_assets_dir
-from fluidaudio_tpu_torch.models.zoo import ASR_VERSIONS
+from fluidaudio_tpu_torch.asr.streaming_eou import EOU_TEST
+from fluidaudio_tpu_torch.asr.streaming_nemotron import _PromptedEncoder
 from fluidaudio_tpu_torch.models.conformer import ConformerEncoder
-from fluidaudio_tpu_torch.models.predictor import RnntJoint, RnntPredictor
+from fluidaudio_tpu_torch.models.conformer_streaming import StreamingConformerEncoder
+from fluidaudio_tpu_torch.models.predictor import PredictorConfig, RnntJoint, RnntPredictor
+from fluidaudio_tpu_torch.models.zoo import ASR_VERSIONS
 from fluidaudio_tpu_torch.utils import weights
 
 PORT_DIR = Path(weights.__file__).resolve().parents[1]
@@ -25,12 +29,26 @@ PARTS = {
     "predictor": lambda: RnntPredictor(SPEC.predictor),
     "joint": lambda: RnntJoint(SPEC.predictor),
 }
+# the streaming fixtures: EOU_TEST (blank 18) and NEMOTRON_TEST (vocab 34,
+# 4 prompts, the encoder under `encoder/` beside `prompt_embed`)
+_RNNT = dict(n_layers=1, enc_hidden=64, pred_hidden=64, joint_hidden=64, n_durations=0)
+_EOU_PRED = PredictorConfig(vocab_size=EOU_TEST.blank_id, **_RNNT)
+_NEM_PRED = PredictorConfig(vocab_size=34, **_RNNT)
+STREAMING_PARTS = {
+    "eou/encoder": lambda: StreamingConformerEncoder(EOU_TEST.enc_cfg),
+    "eou/predictor": lambda: RnntPredictor(_EOU_PRED),
+    "eou/joint": lambda: RnntJoint(_EOU_PRED),
+    "nemotron/encoder": lambda: _PromptedEncoder(EOU_TEST.enc_cfg, 4),
+    "nemotron/predictor": lambda: RnntPredictor(_NEM_PRED),
+    "nemotron/joint": lambda: RnntJoint(_NEM_PRED),
+}
+ALL_PARTS = {**PARTS, **STREAMING_PARTS}  # test-tiny parts are under asr/
 
 
-@pytest.mark.parametrize("part", sorted(PARTS))
+@pytest.mark.parametrize("part", sorted(ALL_PARTS))
 def test_trained_npz_keys_are_all_consumed(part):
-    path = trained_assets_dir() / "asr" / f"{part}.npz"
-    module = PARTS[part]()
+    path = trained_assets_dir() / f"{part if '/' in part else 'asr/' + part}.npz"
+    module = ALL_PARTS[part]()
     state = weights.load_npz(path)
     with np.load(path) as data:
         n_keys = len(data.files)
@@ -102,7 +120,8 @@ def test_port_sources_never_import_jax():
 
 
 def test_importing_the_port_leaves_no_jax_in_sys_modules():
-    code = ("import sys, fluidaudio_tpu_torch.asr.manager, fluidaudio_tpu_torch.train.tiny_corpus;"
+    code = ("import sys, fluidaudio_tpu_torch.asr.manager, fluidaudio_tpu_torch.train.tiny_corpus,"
+            " fluidaudio_tpu_torch.asr.streaming_nemotron, fluidaudio_tpu_torch.native.flac;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'jaxlib', 'fluidaudio_tpu')]; print(bad); sys.exit(bool(bad))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=PORT_DIR.parent,
