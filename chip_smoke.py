@@ -66,10 +66,37 @@ line is not printed:
      kernel launches and device busy time per chunk step (profiler), and
      Nemotron-en multi-stream at N = 1, 16, 64, 128 streams of 20 s in f32
      and bf16: ms per tick, audio seconds per wall second, peak memory and
-     the device's idle share over a tick.
+     the device's idle share over a tick;
+ 10. the attention dispatch by head width: bare 2-layer f32 encoders at
+     Cohere's trunk widths (Dh 8: d 32, 4 heads; Dh 160: d 1280, 8 heads)
+     and v3's (Dh 128) on the card against the CPU (relative L2 and one
+     RelPosMHSA alone within 1e-4), with 0 kernel launches and one plain
+     call per layer outside the kernel's range and one launch per layer
+     inside it; the first request of a fresh v3 bf16 manager without and
+     then with `warmup()`;
+ 11. the Parakeet facades and the CTC stack on the trained fixtures, on the
+     card against the port on the CPU: `SlidingWindowAsrManager` and
+     `StreamingUnifiedAsrManager` on the `asr` fixture (every update equal,
+     no window error), `arbitrate` (the same strategy, confidences within
+     1e-3), `MultiStreamEouManager` x3 on the `eou` fixture (token-exact
+     ticks; a stream joining late and leaving early == the stream alone),
+     and the `ctc` fixture's gates (greedy WER <= 0.02, beam agreement 1.0,
+     spotting recall and precision >= 0.99, vocabulary boost corrected 1
+     and false boost 0) with the card's canvas within 1e-4 of the CPU's;
+ 12. the slice at full width with seeded random weights: `CtcKeywordSpotter`
+     at parakeet-ctc-0.6b width (24 x 1024, Dh 128, bf16) on 40 s, exactly
+     24 attention launches per 15 s chunk and its canvas within 0.06 of the
+     plain-attention canvas; `StreamingUnifiedAsrManager` on v3 at the
+     640 ms and 2080 ms tiers in bf16 and the 2080 ms tier in int8,
+     `SlidingWindowAsrManager` at its defaults and `arbitrate`, each path
+     counted on its own; timing (card name and power limit on every line):
+     the spotter's ms per chunk, the spotting DP for 20 terms, the greedy
+     CTC decode, ms per window of each facade against its new audio with
+     launches and idle share per window, and `arbitrate`.
 
 The line before the last is the kernel record (JSON, with each kernel's
-launches on its main path, bound and times); the last line is
+launches on its main path and on each path of phases 11-12, bound and
+times); the last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
 
@@ -227,7 +254,7 @@ def set_int8_matmul(encoder, fn) -> None:
 # ---------------------------------------------------------------- phases
 
 
-def phase_device(attn, i8) -> str:
+def phase_device(attn, i8) -> tuple[str, str]:
     from concurrent.futures import ThreadPoolExecutor
 
     from fluidaudio_tpu_torch.native import flac
@@ -258,7 +285,7 @@ def phase_device(attn, i8) -> str:
     report = ptxas_report(built[i8.KERNEL_SOURCE.name][1], "int8_gemm_dequant")
     print(f"phase 1 int8_gemm_dequant (nvcc -Xptxas -v): {report or 'built before this run'} | "
           f"dynamic shared memory {lib.int8_gemm_dequant_smem_bytes()} B")
-    return smi
+    return smi, builds
 
 
 def ptxas_report(log: str, kernel: str) -> str:
@@ -1132,6 +1159,438 @@ def streaming_full_width(attn, i8, device, smi: str) -> None:
           f"kernel launches {launches}, as neither kernel is on it")
 
 
+# ------------------------------------------ repairs, facades and CTC phases
+
+
+def counted(attn, i8, fn):
+    """Run fn with every kernel count (and the plain attention's call count)
+    set to 0 just before and read just after -> (fn's result, counts)."""
+    torch.cuda.synchronize()
+    reset_launches(attn.relpos_attention, i8.int8_matmul_fused)
+    attn.relpos_attention_plain.calls = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"relpos_attention": attn.relpos_attention.launches,
+                 "int8_matmul_fused": i8.int8_matmul_fused.launches,
+                 "relpos_attention_plain calls": attn.relpos_attention_plain.calls}
+
+
+def host_ms(fn, runs: int = 5, warmup: int = 1) -> float:
+    """Median host wall in ms of fn (ending in a device sync) after warm-up."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+# bare encoders at the head widths of the attention dispatch, depth cut to 2
+# layers: Cohere's trunk at its trained fixture (COHERE_TEST: d 32, 4 heads,
+# 16 mels) and at full width (CohereConfig: d 1280, 8 heads, 160
+# subsampling channels), and v3's width (Dh 128), all f32
+DISPATCH_ENCODERS = [("Dh 8 (Cohere test trunk)", dict(n_mels=16, d_model=32, n_heads=4,
+                                                       subsampling_channels=32)),
+                     ("Dh 128 (v3 width)", dict(d_model=1024, n_heads=8)),
+                     ("Dh 160 (Cohere full trunk)", dict(d_model=1280, n_heads=8,
+                                                         subsampling_channels=160))]
+
+
+def phase_repairs(attn, i8, device, build_s: str) -> None:
+    """Phase 10: the attention dispatch by head width on the card against
+    the CPU, and the first request of a fresh v3 manager with and without
+    `warmup()`."""
+    import copy
+
+    from fluidaudio_tpu_torch.asr.config import ASRConfig
+    from fluidaudio_tpu_torch.asr.manager import AsrManager
+    from fluidaudio_tpu_torch.models.conformer import (
+        ConformerConfig, ConformerEncoder, rel_sinusoid)
+    from fluidaudio_tpu_torch.models.zoo import AsrModels, disable_tf32, random_init_
+
+    disable_tf32()  # true f32 on the card, as every entry point sets it
+    parts = []
+    for name, widths in DISPATCH_ENCODERS:
+        cfg = ConformerConfig(n_layers=2, dtype="float32", **widths)
+        cpu_enc = ConformerEncoder(cfg).eval()
+        random_init_(cpu_enc, torch.Generator().manual_seed(0))
+        with torch.no_grad():  # non-zero position biases
+            for m in (cpu_enc.block0.mhsa, cpu_enc.block1.mhsa):
+                m.pos_bias_u.normal_(0, 0.1)
+                m.pos_bias_v.normal_(0, 0.1)
+        card_enc = copy.deepcopy(cpu_enc).to(device)
+        g = torch.Generator().manual_seed(1)
+        mel = torch.randn(2, cfg.n_mels, 160, generator=g)
+        mel_len = torch.tensor([160, 97], dtype=torch.int32)
+        (got, got_len), counts = counted(attn, i8, lambda: card_enc(mel.to(device),
+                                                                    mel_len.to(device)))
+        want, _ = cpu_enc(mel, mel_len)
+        rel = rel_l2(got.cpu(), want)
+        # one block's attention alone, on the same input, valid rows
+        T = got.shape[1]
+        x = torch.randn(2, T, cfg.d_model, generator=g)
+        pos = rel_sinusoid(T, cfg.d_model)
+        with torch.no_grad():
+            m_want = cpu_enc.block0.mhsa(x, pos, got_len.cpu())
+            m_got = card_enc.block0.mhsa(x.to(device), pos.to(device), got_len)
+        m_err = max((m_got[b, :n].cpu() - m_want[b, :n]).abs().max().item()
+                    for b, n in enumerate(got_len.tolist()))
+        in_range = attn.kernel_takes_head_dim(cfg.head_dim)
+        want_launches = cfg.n_layers if in_range else 0
+        check(counts["relpos_attention"] == want_launches
+              and counts["relpos_attention_plain calls"] == cfg.n_layers - want_launches,
+              f"{name}: counts {counts}, want {want_launches} kernel launches")
+        check(rel <= 1e-4 and m_err <= 1e-4,
+              f"{name}: card vs CPU relative L2 {rel}, attention alone max abs {m_err}")
+        parts.append(f"{name}: {counts['relpos_attention']} kernel launches, "
+                     f"{counts['relpos_attention_plain calls']} plain calls for "
+                     f"{cfg.n_layers} layers | encoder card vs CPU rel L2 {rel:.2e}, "
+                     f"RelPosMHSA alone max abs {m_err:.2e} (tol 1e-4)")
+    print(f"phase 10 attention dispatch by head width (f32, 2 layers): {' | '.join(parts)}")
+
+    rs = np.random.RandomState(10)
+    audio = speechlike(rs, 15.0)
+    lines = []
+    for warm in (False, True):
+        models = AsrModels.load("v3", device=device, rng_seed=0)
+        manager = AsrManager(models, ASRConfig(parallel_chunk_batch=4))
+        torch.cuda.synchronize()
+        warm_s = 0.0
+        if warm:
+            t0 = time.perf_counter()
+            manager.warmup()
+            warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        manager.transcribe(audio)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        manager.transcribe(audio)
+        torch.cuda.synchronize()
+        second = time.perf_counter() - t0
+        order = f"2nd manager, warmup() {warm_s:.3f} s, then" if warm else "1st manager, no warmup"
+        lines.append(f"{order}: first 15 s request {first:.3f} s, second {second:.3f} s")
+        del models, manager
+        torch.cuda.empty_cache()
+    print(f"phase 10 fresh v3 bf16 manager, in this order (the kernels were built in phase 1, "
+          f"{build_s}, and are loaded in this process; neither run below pays for a build): "
+          f"{' | '.join(lines)}")
+
+
+def stream_updates(sliding, audio, piece: int):
+    """Feed `audio` in pieces of `piece` samples -> (every update's fields,
+    the final update's, the session)."""
+    session = sliding.make_session()
+    updates = []
+    for start in range(0, audio.size, piece):
+        updates += [vars(u) for u in sliding.feed(audio[start:start + piece], session)]
+    final = vars(sliding.finish(session))
+    check(session.error_count == 0, f"{session.error_count} windows failed")
+    return updates, final, session
+
+
+def ragged_schedule(m, audio, other):
+    """A stream that joins late (slot 1 closed, then opened) and leaves early
+    -> (the ticks' outputs, transcripts of slot 0 and the late stream)."""
+    ticks = []
+    m.streams[1].ended = True
+    m.feed(0, other[:12_000])
+    for _ in range(2):
+        if m.ready:
+            ticks.append(m.tick())
+    late = m.open_stream()
+    m.feed(late, audio[:8_000])
+    m.feed(0, other[12_000:])
+    while m.ready:
+        ticks.append(m.tick())
+    m.feed(late, audio[8_000:16_000])
+    while m.ready:
+        ticks.append(m.tick())
+    m.end_stream(late)
+    m.feed(0, other[:8_000])
+    while m.ready:
+        ticks.append(m.tick())
+    return ticks, m.transcript(0), m.transcript(late)
+
+
+def phase_facade_fixtures(attn, i8, device) -> dict:
+    """Phase 11: the Parakeet facades and the CTC stack on the trained
+    fixtures, on the card against the port on the CPU. -> {kernel: launches}."""
+    from fluidaudio_tpu_torch.asr.arbitration import arbitrate
+    from fluidaudio_tpu_torch.asr.config import ASRConfig
+    from fluidaudio_tpu_torch.asr.manager import AsrManager
+    from fluidaudio_tpu_torch.asr.multi_stream import MultiStreamEouManager
+    from fluidaudio_tpu_torch.asr.sliding_window import (
+        SlidingWindowAsrConfig, SlidingWindowAsrManager)
+    from fluidaudio_tpu_torch.asr.streaming_eou import EOU_TEST
+    from fluidaudio_tpu_torch.asr.unified import (
+        StreamingUnifiedAsrManager, UnifiedStreamingConfig)
+    from fluidaudio_tpu_torch.metrics.wer import wer
+    from fluidaudio_tpu_torch.models.zoo import AsrModels
+    from fluidaudio_tpu_torch.train import fixtures as fx
+    from fluidaudio_tpu_torch.train import tiny_corpus as tc
+
+    def asr_manager(dev):
+        models = AsrModels.load("test-tiny", checkpoint_dir=TRAINED_ASR, device=dev,
+                                allow_random_init=False)
+        return AsrManager(models, ASRConfig(parallel_chunk_batch=2))
+
+    def run():
+        parts = []
+        on_card, on_cpu = asr_manager(device), asr_manager("cpu")
+        rs = np.random.RandomState(20)
+        ids = rs.randint(0, tc.N_WORDS, size=24)
+        audio = tc.make_utterance(ids, rs)
+        window = dict(chunk_seconds=2.0, left_context_seconds=3.0, right_context_seconds=1.0)
+        for label, make in (
+                ("SlidingWindowAsrManager", lambda m: SlidingWindowAsrManager(
+                    m, SlidingWindowAsrConfig(**window))),
+                ("StreamingUnifiedAsrManager", lambda m: StreamingUnifiedAsrManager(
+                    m.models, UnifiedStreamingConfig(**window)))):
+            got, got_final, _ = stream_updates(make(on_card), audio, 5_000)
+            want, want_final, _ = stream_updates(make(on_cpu), audio, 5_000)
+            check(got == want and got_final == want_final,
+                  f"{label} on the asr fixture: card updates differ from the CPU's")
+            rate = wer(tc.transcript_text(ids), got_final["confirmed_text"]).rate
+            parts.append(f"{label} {len(got)} updates == CPU, final WER {rate:.4f}")
+        long_ids = rs.randint(0, tc.N_WORDS, size=40)
+        long_audio = tc.make_utterance(long_ids, rs)
+        got, want = arbitrate(on_card, long_audio), arbitrate(on_cpu, long_audio)
+        worst = max(abs(got.confidences[k] - want.confidences[k]) for k in want.confidences)
+        check(got.strategy == want.strategy and worst <= 1e-3,
+              f"arbitrate: card {got} vs CPU {want}")
+        parts.append(f"arbitrate picks {got.strategy!r} as the CPU, confidences within "
+                     f"{worst:.2e} (tol 1e-3)")
+
+        def multi(dev):
+            return MultiStreamEouManager(3, 320, spec=EOU_TEST, checkpoint_dir=TRAINED_EOU,
+                                         device=dev)
+
+        utts = [a for _, a in eou_fixture_utterances(seed=31, n=3)]
+        ticks = []
+        for m in (multi(device), multi("cpu")):
+            for i, a in enumerate(utts):
+                m.feed(i, a[:len(a) // (i + 1)])
+            out = []
+            while m.ready:
+                out.append(m.tick())
+            for i, a in enumerate(utts):
+                m.feed(i, a[len(a) // (i + 1):])
+            while m.ready:
+                out.append(m.tick())
+            ticks.append((out, [m.transcript(i) for i in range(3)]))
+        check(ticks[0] == ticks[1], "MultiStreamEouManager x3: card ticks differ from the CPU's")
+        ragged = ragged_schedule(MultiStreamEouManager(2, 320, spec=EOU_TEST,
+                                                       checkpoint_dir=TRAINED_EOU,
+                                                       device=device), utts[0], utts[1])
+        alone = MultiStreamEouManager(2, 320, spec=EOU_TEST, checkpoint_dir=TRAINED_EOU,
+                                      device=device)
+        alone.feed(0, utts[0][:16_000])
+        while alone.ready:
+            alone.tick()
+        check(ragged[2] == alone.transcript(0) and ragged[2],
+              f"late-joining stream {ragged[2]!r} != alone {alone.transcript(0)!r}")
+        parts.append(f"MultiStreamEouManager x3 on the eou fixture: {len(ticks[0][0])} ticks "
+                     f"token-exact against the CPU | a stream joining late and leaving early "
+                     f"== the same stream alone ({ragged[2]!r})")
+
+        ctc = fx.eval_ctc_fixture(device=device)
+        spotting = fx.eval_ctc_spotting_fixture(device=device)
+        boost = fx.eval_vocab_boost_fixture(device=device)
+        check(ctc["wer_avg"] <= fx.ASR_WER_GATE and ctc["beam_agree_rate"] == 1.0,
+              f"ctc fixture {ctc}")
+        check(spotting["recall"] >= fx.KWS_RECALL_GATE
+              and spotting["precision"] >= fx.KWS_PRECISION_GATE, f"spotting fixture {spotting}")
+        check(boost["corrected"] == 1.0 and boost["false_boost"] == 0.0, f"boost fixture {boost}")
+        terms = ["w0 w3", "w5", "w1 w2 w6"]
+        card_spotter, _ = fx._ctc_spotter(terms, device=device)
+        cpu_spotter, _ = fx._ctc_spotter(terms, device="cpu")
+        rs = np.random.RandomState(13579)
+        seq = rs.randint(0, tc.N_WORDS, size=40)
+        spot_audio = tc.make_utterance(seq, rs)
+        canvas_err = float(np.abs(card_spotter.log_probs(spot_audio)
+                                  - cpu_spotter.log_probs(spot_audio)).max())
+        check(canvas_err <= 1e-4, f"ctc canvas card vs CPU max abs {canvas_err}")
+        parts.append(f"ctc fixture: greedy WER {ctc['wer_avg']:.4f}, beam agreement "
+                     f"{ctc['beam_agree_rate']:.2f}, spotting recall {spotting['recall']:.2f} "
+                     f"precision {spotting['precision']:.2f}, vocabulary boost corrected "
+                     f"{boost['corrected']:.0f} false boost {boost['false_boost']:.0f}, canvas "
+                     f"card vs CPU max abs {canvas_err:.2e} (tol 1e-4)")
+        return parts
+
+    parts, counts = counted(attn, i8, run)
+    check(counts["relpos_attention"] > 0, "the fixture phase never launched the attention kernel")
+    print(f"phase 11 trained fixtures on card vs the CPU port: {' | '.join(parts)} | "
+          f"launches {counts}")
+    return counts
+
+
+# the parakeet-ctc-0.6b encoder: NeMo FastConformer 24 x 1024, 8 heads (Dh 128),
+# CTC vocab 1024 + blank, bf16
+CTC_0_6B = dict(d_model=1024, n_layers=24, n_heads=8)
+
+
+def phase_spotter_full_width(attn, i8, device, smi: str) -> tuple[dict, dict]:
+    """Phase 12a: CtcKeywordSpotter at parakeet-ctc-0.6b width with seeded
+    random weights on 40 s (3 chunks): exactly 24 attention launches per
+    chunk, the kernel's canvas against the same spotter's with plain
+    attention; timing of a chunk, the spotting DP and the greedy decode.
+    -> ({kernel: launches}, the timing numbers)."""
+    from fluidaudio_tpu_torch.asr.custom_vocab.context import CustomVocabularyContext
+    from fluidaudio_tpu_torch.asr.custom_vocab.ctc_spotter import spot_keywords
+    from fluidaudio_tpu_torch.asr.keyword_spotter import (
+        CHUNK_SAMPLES, CtcKeywordSpotter, KeywordSpotterConfig)
+    from fluidaudio_tpu_torch.models import conformer as cf
+    from fluidaudio_tpu_torch.models.conformer import ConformerConfig
+    from fluidaudio_tpu_torch.ops.ctc_decode import ctc_greedy_decode
+
+    cfg = ConformerConfig(**CTC_0_6B)
+    spotter = CtcKeywordSpotter(CustomVocabularyContext([]), KeywordSpotterConfig(),
+                                cfg, device=device)
+    rs = np.random.RandomState(40)
+    audio = speechlike(rs, 40.0)
+    canvas, counts = counted(attn, i8, lambda: spotter.log_probs(audio))
+    n_chunks = 3
+    check(counts["relpos_attention"] == cfg.n_layers * n_chunks
+          and counts["relpos_attention_plain calls"] == 0,
+          f"spotter: {counts}, want {cfg.n_layers} x {n_chunks} kernel launches")
+    check(canvas.shape[1] == 1025 and bool(np.isfinite(canvas).all()), "spotter canvas")
+    cf.relpos_attention = attn.relpos_attention_plain  # the same spotter, plain attention
+    try:
+        plain = spotter.log_probs(audio)
+    finally:
+        cf.relpos_attention = attn.relpos_attention
+    err = float(np.abs(canvas - plain).max())
+    check(err <= PARITY_TOL, f"spotter canvas kernel vs plain attention max abs {err}")
+
+    chunk = torch.from_numpy(audio[:CHUNK_SAMPLES])[None].to(device)
+    full = torch.tensor([CHUNK_SAMPLES], dtype=torch.int32, device=device)
+    chunk_ms = host_ms(lambda: spotter.chunk_log_probs(chunk, full).cpu())
+    per_chunk, busy = profile_calls(lambda: spotter.chunk_log_probs(chunk, full).cpu(), 3)
+    gen = np.random.RandomState(41)
+    keywords = {f"term{i}": [int(t) for t in gen.randint(0, 1024, size=gen.randint(2, 7))]
+                for i in range(20)}
+    dp_ms = host_ms(lambda: spot_keywords(canvas, keywords, 1024), runs=3)
+    lp = torch.from_numpy(canvas)[None].to(device)
+    lens = torch.tensor([canvas.shape[0]], device=device)
+    greedy_ms = host_ms(lambda: ctc_greedy_decode(lp, lens, 1024)[2].cpu(), runs=20)
+    times = {"chunk_ms": chunk_ms, "dp_ms": dp_ms, "greedy_ms": greedy_ms}
+    print(f"phase 12 CtcKeywordSpotter at parakeet-ctc-0.6b width ({cfg.n_layers}x{cfg.d_model}, "
+          f"{cfg.n_heads} heads, Dh {cfg.head_dim}, vocab 1024 + blank, bf16, seeded random "
+          f"weights), 40 s = {n_chunks} chunks: canvas {canvas.shape}, launches {counts} | "
+          f"kernel canvas vs plain-attention canvas max abs {err:.3e} (tol {PARITY_TOL})")
+    print(f"timing [{smi}] keyword spotter 15 s chunk (mel, encoder, head, log-softmax, one "
+          f"copy back): median {chunk_ms:.3f} ms (host wall), {per_chunk:.0f} kernel launches "
+          f"and {busy:.3f} ms device busy per chunk (profiler), idle share "
+          f"{max(0.0, 1 - busy / chunk_ms):.3f} | spotting DP, 20 terms of 2-6 tokens over the "
+          f"40 s canvas ({canvas.shape[0]} frames, host): median {dp_ms:.3f} ms | "
+          f"ctc_greedy_decode on the card, [1, {canvas.shape[0]}, 1025]: median "
+          f"{greedy_ms:.3f} ms (host wall incl. the copy of the counts)")
+    del spotter
+    torch.cuda.empty_cache()
+    return counts, times
+
+
+def time_facade(smi: str, label: str, sliding, cfg, audio) -> None:
+    """Feed one window's new audio per call (after the first window), so each
+    call runs one window (`cfg` is the manager's SlidingWindowAsrConfig):
+    ms per window (host wall, median after 2 windows of warm-up) against the
+    window's new audio; launches, device busy and idle share per window from
+    the profiler over 3 more windows."""
+    chunk_samples = cfg.chunk_samples
+    session = sliding.make_session()
+    first = cfg.chunk_samples + cfg.right_samples
+    check(len(sliding.feed(audio[:first], session)) == 1, f"{label}: first window")
+    pieces = [audio[s:s + chunk_samples] for s in range(first, audio.size, chunk_samples)]
+    pieces = [p for p in pieces if p.size == chunk_samples]
+    walls = []
+    for i, piece in enumerate(pieces[:-3]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(len(sliding.feed(piece, session)) == 1, f"{label}: one window per call")
+        torch.cuda.synchronize()
+        if i >= 2:
+            walls.append((time.perf_counter() - t0) * 1e3)
+    rest = iter(pieces[-3:])
+    launches, busy = profile_calls(lambda: sliding.feed(next(rest), session), 3)
+    final = sliding.finish(session)
+    check(session.error_count == 0, f"{label}: {session.error_count} windows failed")
+    ms = float(np.median(walls))
+    new_ms = chunk_samples / 16
+    print(f"timing [{smi}] {label}: {len(walls)} timed windows of {cfg.window_samples / 16_000:.2f} "
+          f"s ({new_ms:.0f} ms new audio each): median {ms:.3f} ms per window, {ms / new_ms:.4f} "
+          f"of the new audio | {launches:.0f} kernel launches and {busy:.3f} ms device busy per "
+          f"window (profiler), idle share {max(0.0, 1 - busy / ms):.3f} | "
+          f"{len(final.confirmed_text.split())} words confirmed")
+
+
+def phase_facades_full_width(attn, i8, device, smi: str) -> dict:
+    """Phase 12b: StreamingUnifiedAsrManager on v3 at the
+    parakeet-unified-640ms and -2080ms tiers in bf16 and at -2080ms in int8,
+    and SlidingWindowAsrManager at its defaults, over 30 s each; `arbitrate`
+    on v3. Every path counted on its own. -> {path: {kernel: launches}}."""
+    from fluidaudio_tpu_torch.asr.arbitration import arbitrate
+    from fluidaudio_tpu_torch.asr.config import ASRConfig
+    from fluidaudio_tpu_torch.asr.manager import AsrManager
+    from fluidaudio_tpu_torch.asr.sliding_window import SlidingWindowAsrManager
+    from fluidaudio_tpu_torch.asr.streaming_variants import create_streaming_manager
+    from fluidaudio_tpu_torch.models.zoo import AsrModels
+
+    rs = np.random.RandomState(30)
+    audio = speechlike(rs, 30.0)
+    out = {}
+    blank_bias = None
+    for quantization in ("none", "int8"):
+        models = AsrModels.load("v3", device=device, rng_seed=0, quantization=quantization)
+        joint_bias = models.joint.out.bias
+        if blank_bias is None:
+            cal = np.stack([speechlike(rs, 15.0) for _ in range(8)])
+            calibrate_blank_bias(AsrManager(models).build_pipeline(8), models,
+                                 torch.from_numpy(cal),
+                                 torch.full((8,), WINDOW, dtype=torch.int32), 8 * 15.0)
+            blank_bias = float(joint_bias[models.blank_id])
+        else:  # the same seed: the int8 load's joint is the bf16 one's
+            with torch.no_grad():
+                joint_bias[models.blank_id] = blank_bias
+        tiers = (("parakeet-unified-640ms", "parakeet-unified-2080ms") if quantization == "none"
+                 else ("parakeet-unified-2080ms",))
+        for key in tiers:
+            mgr = create_streaming_manager(key, models=models, device=device)
+            label = f"StreamingUnifiedAsrManager {key} v3 {quantization}"
+            _, counts = counted(attn, i8, lambda: time_facade(
+                smi, label, mgr, mgr._sliding.config, audio))
+            want_int8 = quantization == "int8"
+            check(counts["relpos_attention"] > 0
+                  and (counts["int8_matmul_fused"] > 0) == want_int8
+                  and counts["relpos_attention_plain calls"] == 0, f"{label}: {counts}")
+            out[f"unified {key.split('-')[-1]} {quantization}"] = counts
+        if quantization == "none":
+            sliding = SlidingWindowAsrManager(AsrManager(models))
+            label = "SlidingWindowAsrManager defaults (3 s + 10 s left + 2 s right) v3 none"
+            _, counts = counted(attn, i8, lambda: time_facade(
+                smi, label, sliding, sliding.config, audio))
+            check(counts["relpos_attention"] > 0 and counts["int8_matmul_fused"] == 0, label)
+            out["sliding defaults none"] = counts
+            manager = AsrManager(models, ASRConfig())
+            decision, counts = counted(attn, i8, lambda: arbitrate(manager, audio))
+            check(counts["relpos_attention"] == models.spec.conformer.n_layers, f"arbitrate {counts}")
+            out["arbitrate none"] = counts
+            arb_ms = host_ms(lambda: arbitrate(manager, audio), runs=5)
+            print(f"timing [{smi}] arbitrate on v3 bf16 (3 probes of 15 s in one "
+                  f"build_pipeline(4) call): median {arb_ms:.3f} ms, picks "
+                  f"{decision.strategy!r} (confidences "
+                  + ", ".join(f"{k} {c:.4f}" for k, c in decision.confidences.items()) + ")")
+        del models
+        torch.cuda.empty_cache()
+    print(f"phase 12 Parakeet facades at full width (v3 24 x 1024, seeded random weights, 30 s "
+          f"of speech-like audio each): launches per path {out}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU", file=sys.stderr)
@@ -1140,10 +1599,14 @@ def main() -> int:
     from fluidaudio_tpu_torch.ops import int8_matmul as i8
 
     device = torch.device("cuda", 0)
-    smi = phase_device(attn, i8)
+    t0 = time.perf_counter()
+    elapsed = lambda done: print(f"elapsed {time.perf_counter() - t0:.1f} s after {done}",
+                                 flush=True)
+    smi, builds = phase_device(attn, i8)
     attn_err = phase_kernel_parity(attn, device)
     int8_err = phase_int8_parity(i8, device)
     phase_trained_fixture(device)
+    elapsed("phases 1-4")
     bf16_models, bf16_manager, bf16_launches, encoded = phase_v3_bf16(attn, i8, device)
     int8_models, int8_manager, int8_launches = phase_v3_int8(attn, i8, device, encoded)
     del encoded
@@ -1154,8 +1617,16 @@ def main() -> int:
     time_pipeline(device, smi, int8_models, int8_manager)
     del bf16_models, bf16_manager, int8_models, int8_manager
     torch.cuda.empty_cache()
+    elapsed("phases 5-7")
     phase_streaming_fixtures(attn, i8, device)
     streaming_full_width(attn, i8, device, smi)
+    elapsed("phases 8-9")
+    phase_repairs(attn, i8, device, builds)
+    paths = {"trained fixtures (phase 11)": phase_facade_fixtures(attn, i8, device)}
+    elapsed("phases 10-11")
+    paths["keyword spotter 0.6B, 40 s"], _ = phase_spotter_full_width(attn, i8, device, smi)
+    paths.update(phase_facades_full_width(attn, i8, device, smi))
+    elapsed("phase 12")
     print(json.dumps({"kernels": [{
         "name": "relpos_attention",
         "route": "cuda",
@@ -1164,6 +1635,7 @@ def main() -> int:
         "launches": bf16_launches["relpos_attention"],
         "max_abs_err": attn_err,
         **attn_t,
+        "launches_by_path": {k: v["relpos_attention"] for k, v in paths.items()},
     }, {
         "name": "int8_matmul_fused",
         "route": "cuda",
@@ -1172,6 +1644,7 @@ def main() -> int:
         "launches": int8_launches["int8_matmul_fused"],
         "max_abs_err": int8_err,
         **int8_t,
+        "launches_by_path": {k: v["int8_matmul_fused"] for k, v in paths.items()},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -12,6 +12,7 @@ upcast there (half the host->device bytes).
 script filtering with the English blocklist (`utils/language.py`): a
 [vocab+1] bool mask of allowed tokens, built once per language.
 
+`warmup()` runs the long-form pipeline once before the first request.
 Not ported yet: mesh-sharded serving (`set_mesh`).
 """
 
@@ -131,6 +132,19 @@ class AsrManager:
             return run(audio, lengths, state, finalize)
 
         return pipeline
+
+    def warmup(self, batch: int | None = None, window_samples: int | None = None) -> None:
+        """Run the long-form pipeline once on zeros before the first request
+        (JAX `warmup`): on the GPU this builds the kernels and sets up the
+        libraries, so the first request does not pay for it."""
+        b = batch or self.config.parallel_chunk_batch
+        cp = ChunkProcessor(ArrayAudioSource(np.zeros(1, np.float32)))
+        w = window_samples or cp.chunk_layout(self.config.mel_chunk_context).window_samples
+        audio = torch.zeros((b, w), dtype=torch.float32)
+        lengths = torch.full((b,), w, dtype=torch.int32)
+        self.build_pipeline(b)(audio, lengths, torch.zeros((b,), dtype=torch.bool))
+        if self.models.device.type == "cuda":
+            torch.cuda.synchronize(self.models.device)
 
     def _language_mask(self, language: str) -> torch.Tensor:
         """[vocab+1] bool on the models' device: tokens allowed for

@@ -96,6 +96,8 @@ class _HostStream:
     timestamps_ms: list[float] = field(default_factory=list)
     last_eou_ms: float = -1e9
     detected_language: str | None = None
+    # `MultiStreamEouManager`: the slot is closed, its row steps masked
+    ended: bool = False
 
 
 @dataclass
@@ -129,10 +131,10 @@ class MultiStreamMixin:
 
     def set_mesh(self, mesh) -> None:
         """Mesh-sharded multi-stream serving is not ported yet: multi-GPU
-        serving over torch.distributed is ROADMAP Queue A item 11."""
+        serving over torch.distributed is the port's last slice."""
         raise NotImplementedError(
-            "set_mesh: multi-GPU serving over torch.distributed is not ported yet "
-            "(ROADMAP Queue A item 11); serve the streams on one device")
+            "set_mesh: multi-GPU serving over torch.distributed is not ported yet; "
+            "serve the streams on one device")
 
     # ------------------------------------------------------------ session
 

@@ -117,10 +117,9 @@ class _StreamState:
     detected_language: str | None = None
 
 
-class _StreamingManagerBase(MultiStreamMixin):
-    """What the EOU and Nemotron managers share: the modules and weights,
-    the single-stream chunk loop and its flush. Subclasses set the specs
-    and provide `_apply_encoder`, `_host_advance` and `_prompt_ids`."""
+class _StreamingModels(MultiStreamMixin):
+    """The modules and weights every streaming manager builds (the EOU and
+    Nemotron managers, and `multi_stream.MultiStreamEouManager`)."""
 
     def _build(self, encoder: torch.nn.Module, vocab_size: int, pred_hidden: int,
                joint_hidden: int, dcfg: TdtDecodeConfig, device) -> None:
@@ -158,6 +157,12 @@ class _StreamingManagerBase(MultiStreamMixin):
             Tokenizer.from_json(vocab_file) if vocab_file is not None and vocab_file.exists()
             else Tokenizer(_placeholder_vocab(placeholder_vocab))
         )
+
+
+class _StreamingManagerBase(_StreamingModels):
+    """What the EOU and Nemotron managers share beyond the models: the
+    single-stream chunk loop and its flush. Subclasses set the specs and
+    provide `_apply_encoder`, `_host_advance` and `_prompt_ids`."""
 
     def _make_state(self, forced_prefix: int | None = None) -> _StreamState:
         dec_state = make_initial_state(self.dcfg, self.pred_cfg.n_layers,

@@ -4,7 +4,11 @@ Port of `fluidaudio_tpu/models/conformer.py` for the full-context models:
   - 8x depthwise-separable striding subsampling (3 conv stages, stride 2 each)
   - N conformer blocks: 0.5*FFN -> rel-pos MHSA -> conv module -> 0.5*FFN -> LN
   - Transformer-XL relative positional multi-head attention through
-    `ops.attention.relpos_attention` (the CUDA kernel on a GPU)
+    `ops.attention.relpos_attention` (the CUDA kernel on a GPU) when the
+    kernel takes the head width (Dh 16, 32, ..., 128), else through
+    `relpos_attention_plain` on the tensors' own device: a branch on the
+    shape, taken before any launch, as the JAX encoder branches between
+    its Pallas and einsum paths
   - conv module: LN -> pointwise(2d, GLU) -> depthwise(k) -> BN -> SiLU -> pointwise
 
 Module and parameter names mirror the flax tree (`block{i}.mhsa.q.weight` for
@@ -28,7 +32,11 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from fluidaudio_tpu_torch.ops.attention import relpos_attention
+from fluidaudio_tpu_torch.ops.attention import (
+    kernel_takes_head_dim,
+    relpos_attention,
+    relpos_attention_plain,
+)
 from fluidaudio_tpu_torch.ops.quant import Int8Linear
 
 AttentionFn = Callable[..., torch.Tensor]
@@ -140,10 +148,14 @@ class RelPosMHSA(nn.Module):
         self.out = _linear(cfg, d, d, device=device)
 
     def forward(self, x: torch.Tensor, pos_emb: torch.Tensor, lengths: torch.Tensor,
-                attention: AttentionFn = relpos_attention) -> torch.Tensor:
+                attention: AttentionFn | None = None) -> torch.Tensor:
+        """`attention=None` picks by head width: the kernel's wrapper where
+        the kernel takes Dh, the plain version elsewhere."""
         B, T, d = x.shape
         H = self.n_heads
         Dh = d // H
+        if attention is None:
+            attention = relpos_attention if kernel_takes_head_dim(Dh) else relpos_attention_plain
         x = self.ln(x)
         q = self.q(x).reshape(B, T, H, Dh)
         k = self.k(x).reshape(B, T, H, Dh)
@@ -181,7 +193,7 @@ class ConformerBlock(nn.Module):
         return getattr(self, f"{name}_fc2")(h)
 
     def forward(self, x, pad_mask, pos_emb, lengths,
-                attention: AttentionFn = relpos_attention) -> torch.Tensor:
+                attention: AttentionFn | None = None) -> torch.Tensor:
         x = x + 0.5 * self._ffn(x, "ffn1")
         x = x + self.mhsa(x, pos_emb, lengths, attention)
         x = x + self.conv(x, pad_mask)
@@ -230,7 +242,7 @@ class ConformerEncoder(nn.Module):
 
     @torch.no_grad()
     def forward(self, mel: torch.Tensor, mel_lengths: torch.Tensor,
-                attention: AttentionFn = relpos_attention
+                attention: AttentionFn | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
         x = self.subsampling(mel)

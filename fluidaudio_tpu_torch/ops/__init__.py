@@ -1,1 +1,3 @@
-"""See the package docstring of `fluidaudio_tpu_torch`."""
+from fluidaudio_tpu_torch.ops.mel import MelConfig, MelFrontend, log_mel_numpy
+
+__all__ = ["MelConfig", "MelFrontend", "log_mel_numpy"]

@@ -34,10 +34,18 @@ from fluidaudio_tpu_torch.ops import build
 KERNEL_SOURCE = build.CSRC / "relpos_attention.cu"
 
 
+def kernel_takes_head_dim(head_dim: int) -> bool:
+    """Whether the kernel takes this head width (16, 32, ..., 128): callers
+    branch on it before a launch, as the JAX encoder branches on Dh."""
+    return head_dim % 16 == 0 and 16 <= head_dim <= 128
+
+
 def relpos_attention_plain(qu, qw, k, v, p, lengths, t_real: int, *,
                            out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain torch version with the kernel's semantics, computed in f32;
-    with `out=` the result is copied there (`out.copy_`) and `out` returned."""
+    with `out=` the result is copied there (`out.copy_`) and `out` returned.
+    Runs on the tensors' own device and counts its calls in `.calls`."""
+    relpos_attention_plain.calls += 1
     B, H, T, Dh = qu.shape
     f32 = torch.float32
     ac = torch.einsum("bhtd,bhsd->bhts", qu.to(f32), k.to(f32))
@@ -55,6 +63,9 @@ def relpos_attention_plain(qu, qw, k, v, p, lengths, t_real: int, *,
     if out is None:
         return result
     return out.copy_(result)
+
+
+relpos_attention_plain.calls = 0  # calls since the last reset, on any device
 
 
 @functools.cache
@@ -127,7 +138,7 @@ def relpos_attention(qu, qw, k, v, p, lengths, t_real: int, *,
             raise ValueError(f"{name} dtype {x.dtype} != qu dtype {qu.dtype}")
     if lengths.dtype != torch.int32 or not lengths.is_contiguous():
         raise ValueError("lengths must be a contiguous int32 tensor")
-    if Dh % 16 or not 16 <= Dh <= 128:
+    if not kernel_takes_head_dim(Dh):
         raise ValueError(f"kernel takes Dh in 16, 32, ..., 128, got {Dh}")
     if out is None:
         out = torch.empty((B, H, T, Dh), dtype=torch.float32, device=qu.device)

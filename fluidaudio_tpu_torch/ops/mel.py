@@ -128,6 +128,45 @@ class MelConfig:
 
 
 # ---------------------------------------------------------------------------
+# NumPy golden reference (direct per-frame FFT) — used by tests
+# ---------------------------------------------------------------------------
+
+
+def log_mel_numpy(audio: np.ndarray, cfg: MelConfig, last_sample: float = 0.0) -> np.ndarray:
+    """Direct (slow) implementation. Returns [n_mels, T] float32."""
+    x = np.asarray(audio, dtype=np.float32).copy()
+    if cfg.preemph > 0 and x.size:
+        shifted = np.concatenate([[np.float32(last_sample)], x[:-1]])
+        x = x - cfg.preemph * shifted
+    pad = cfg.n_fft // 2 if cfg.center else 0
+    xp = np.pad(x, (pad, pad))
+    T = cfg.num_frames(audio.shape[0])
+    win = hann_window(cfg.win_length, cfg.window_periodic)
+    off = (cfg.n_fft - cfg.win_length) // 2
+    fb = slaney_mel_filterbank(cfg.n_fft, cfg.n_mels, cfg.sample_rate, f_max=cfg.f_max)
+    out = np.zeros((cfg.n_mels, T), dtype=np.float32)
+    for t in range(T):
+        frame = np.zeros(cfg.n_fft, dtype=np.float32)
+        start = t * cfg.hop_length + off
+        seg = xp[start : start + cfg.win_length]
+        frame[off : off + seg.size] = seg * win[: seg.size]
+        spec = np.fft.rfft(frame)
+        power = (spec.real**2 + spec.imag**2).astype(np.float32)
+        if cfg.mag_power != 2.0:
+            power = power ** (cfg.mag_power / 2.0)
+        mel = fb @ power
+        if cfg.log_floor_mode == "additive":
+            out[:, t] = np.log(mel + cfg.log_floor)
+        else:
+            out[:, t] = np.log(np.maximum(mel, cfg.log_floor))
+    if cfg.normalize == "per_feature" and T > 1:
+        mean = out.mean(axis=1, keepdims=True)
+        std = out.std(axis=1, ddof=1, keepdims=True)
+        out = (out - mean) / (std + 1e-5)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Torch implementation (batched)
 # ---------------------------------------------------------------------------
 

@@ -1,0 +1,216 @@
+"""Trained `ctc` fixture evaluations, on the port's CTC stack.
+
+Copies of the CTC part of `fluidaudio_tpu/train/fixtures.py` (that module
+imports JAX): the same seeds, corpora and gates, run through the port's
+`CtcKeywordSpotter`, `ctc_greedy_decode`, `ctc_beam_search` and
+`ctc_token_rescore` on `device` (None: the GPU; pass "cpu" to run on the
+CPU). The fixture itself is the JAX package's committed npz
+(`fluidaudio_tpu/assets/trained_tiny/ctc/`), read as files.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from fluidaudio_tpu_torch.train import tiny_corpus as tc
+
+#: the fixture's vocabulary: 16 tone words at 0..15, blank LAST (id 16 — the
+#: parakeet-ctc head layout `KeywordSpotterConfig.blank_id`)
+CTC_BLANK_ID = tc.N_WORDS
+#: quality gates the fixture clears (as in the JAX package)
+ASR_WER_GATE = 0.02
+KWS_RECALL_GATE = 0.99
+KWS_PRECISION_GATE = 0.99
+
+
+def trained_assets_dir() -> Path:
+    """The committed trained fixtures (they live beside the JAX package)."""
+    return Path(__file__).resolve().parents[2] / "fluidaudio_tpu" / "assets" / "trained_tiny"
+
+
+def ctc_tiny_enc_cfg():
+    """Offline-conformer size of the CTC fixture (the zoo `test-tiny`
+    encoder: d 64, 2 layers, 4 heads, Dh 16, f32)."""
+    from fluidaudio_tpu_torch.models.conformer import ConformerConfig
+
+    return ConformerConfig(d_model=64, n_layers=2, n_heads=4,
+                           subsampling_channels=32, dtype="float32")
+
+
+def _ctc_spotter(terms=None, device=None):
+    from fluidaudio_tpu_torch.asr.custom_vocab.context import (
+        CustomVocabularyContext, VocabularyTerm,
+    )
+    from fluidaudio_tpu_torch.asr.keyword_spotter import (
+        CtcKeywordSpotter, KeywordSpotterConfig,
+    )
+    from fluidaudio_tpu_torch.asr.tokenizer import Tokenizer
+
+    ckpt = trained_assets_dir() / "ctc"
+    tok = Tokenizer.from_json(ckpt / "vocab.json")
+    ctx = CustomVocabularyContext(
+        [VocabularyTerm(text=t) for t in (terms or [])], tok,
+        min_term_length=2,
+    )
+    spotter = CtcKeywordSpotter(
+        ctx, KeywordSpotterConfig(vocab_size=tc.N_WORDS),
+        encoder_cfg=ctc_tiny_enc_cfg(), checkpoint_dir=ckpt, device=device,
+    )
+    return spotter, tok
+
+
+def _greedy(canvas: np.ndarray, device) -> tuple[list[int], list[int]]:
+    """Greedy CTC over one [T, V+1] canvas on `device` -> (ids, frames)."""
+    from fluidaudio_tpu_torch.ops.ctc_decode import ctc_greedy_decode
+
+    toks, frames, counts = ctc_greedy_decode(
+        torch.from_numpy(canvas)[None].to(device),
+        torch.tensor([len(canvas)], device=device), CTC_BLANK_ID)
+    n = int(counts[0])
+    return ([int(t) for t in toks[0, :n].cpu().numpy()],
+            [int(f) for f in frames[0, :n].cpu().numpy()])
+
+
+def eval_ctc_fixture(seed: int = 24680, n_utts: int = 3, *, device=None) -> dict[str, float]:
+    """Greedy CTC decode WER on the trained posteriors + prefix-beam-search
+    agreement (the CtcDecoder/ARPA stack's acoustic front, reference
+    `CtcAsrManager` greedy path + Earnings22 CTC benchmark)."""
+    from fluidaudio_tpu_torch.metrics.wer import wer
+    from fluidaudio_tpu_torch.ops.ctc_decode import ctc_beam_search
+
+    spotter, tok = _ctc_spotter(device=device)
+    rs = np.random.RandomState(seed)
+    rates, beam_agree = [], 0
+    # 38 words ≈ 16 s: crosses the 15 s chunk boundary, so the greedy WER
+    # also covers the logmeanexp overlap-merge seam
+    for n in (6, 20, 38)[:n_utts]:
+        ids = rs.randint(0, tc.N_WORDS, size=n)
+        audio = tc.make_utterance(ids, rs)
+        canvas = spotter.log_probs(audio)
+        greedy_ids, _ = _greedy(canvas, spotter.device)
+        rates.append(wer(tc.transcript_text(ids), tok.decode(greedy_ids)).rate)
+        beam_ids = ctc_beam_search(canvas, CTC_BLANK_ID, beam_width=4)
+        beam_agree += beam_ids == greedy_ids
+    return {"wer_avg": float(np.mean(rates)),
+            "beam_agree_rate": beam_agree / n_utts}
+
+
+def eval_ctc_spotting_fixture(seed: int = 13579, *, device=None) -> dict[str, float]:
+    """Functional keyword spotting through the FULL CtcKeywordSpotter path
+    (chunked 15 s windows, logmeanexp overlap merge, per-keyword DP):
+    multi-word terms planted ONCE in a long recording among disjoint
+    background words must spot at the right frames; an absent term must not
+    spot at all. Reference `WordSpotting/CtcKeywordSpotter.swift` +
+    Earnings22-KWS benchmark semantics."""
+    rs = np.random.RandomState(seed)
+    # keyword words 0..7, background words 8..15: no accidental occurrences
+    planted = [("w0 w3", [0, 3]), ("w5", [5]), ("w1 w2 w6", [1, 2, 6])]
+    absent = "w4 w7"
+    word_span = tc.WORD_SEC + tc.GAP_SEC
+
+    # 34 background + 6 planted words ≈ 17 s: the spot canvas spans two
+    # 15 s chunks, so DP search runs over a logmeanexp-merged seam
+    seq: list[int] = list(rs.randint(8, tc.N_WORDS, size=34))
+    slots = sorted(rs.choice(len(seq), size=len(planted), replace=False))
+    starts: dict[str, int] = {}  # term -> word index in final sequence
+    grown = 0
+    for slot, (term, term_ids) in zip(slots, planted):
+        pos = slot + grown
+        seq[pos:pos] = term_ids
+        starts[term] = pos
+        grown += len(term_ids)
+    audio = tc.make_utterance(np.asarray(seq), rs)
+
+    spotter, _ = _ctc_spotter([t for t, _ in planted] + [absent], device=device)
+    spots = {s.keyword: s for s in spotter.spot(audio)}
+
+    hits, timing_ok = 0, 0
+    for term, term_ids in planted:
+        s = spots.get(term)
+        if s is None:
+            continue
+        hits += 1
+        # expected encoder-frame window (80 ms frames; 0.10 s lead)
+        t0 = (0.10 + starts[term] * word_span) / 0.080
+        t1 = t0 + len(term_ids) * word_span / 0.080
+        timing_ok += (s.start_frame >= t0 - 4) and (s.end_frame <= t1 + 4)
+    false_alarms = int(absent in spots)
+    n_spots = len(spots)
+    return {
+        "recall": hits / len(planted),
+        "precision": (n_spots - false_alarms) / max(n_spots, 1),
+        "timing_rate": timing_ok / len(planted),
+    }
+
+
+def eval_vocab_boost_fixture(seed: int = 555, *, device=None) -> dict[str, float]:
+    """End-to-end vocabulary-boost WER-improvement proof on the TRAINED CTC
+    fixture: a forced misrecognition is CORRECTED by `ctc_token_rescore`,
+    and a decoy term must NOT over-fire on a correctly-recognized word.
+
+    One slot renders the true word `w12` under stronger `w13` interference
+    (a 60/40 blend of the two tones), so greedy CTC decodes `w13`; the
+    vocabulary carries `w12` with alias `w13` plus a decoy `w0` aliased to
+    the correctly-spoken `w8`, which only the acoustic CTC-vs-CTC gate can
+    reject. Everything runs the DEFAULT RescorerConfig (the JAX function's
+    docstring gives the construction in full)."""
+    from fluidaudio_tpu_torch.asr.custom_vocab.context import (
+        CustomVocabularyContext, VocabularyTerm,
+    )
+    from fluidaudio_tpu_torch.asr.custom_vocab.rescorer import (
+        WordTiming, ctc_token_rescore,
+    )
+    from fluidaudio_tpu_torch.metrics.wer import wer
+
+    spotter, tok = _ctc_spotter(device=device)
+    rs = np.random.RandomState(seed)
+    truth = [5, 8, 12, 1, 2, 14]
+    confused_slot, true_word = 2, 12
+
+    # build the waveform by hand so the confused slot carries the blend
+    lead = int(0.10 * tc.SR)
+    gap = np.zeros(int(tc.GAP_SEC * tc.SR), np.float32)
+    parts = [np.zeros(lead, np.float32)]
+    for slot, w in enumerate(truth):
+        if slot == confused_slot:
+            blend = (0.6 * tc.word_audio(13, amp=1.0)
+                     + 0.4 * tc.word_audio(true_word, amp=1.0))
+            parts.append((0.35 * blend).astype(np.float32))
+        else:
+            parts.append(tc.word_audio(int(w), amp=float(rs.uniform(0.25, 0.45))))
+        parts.append(gap)
+    audio = np.concatenate(parts)
+    audio += rs.randn(audio.size).astype(np.float32) * 0.002
+
+    canvas = spotter.log_probs(audio)  # [T, V+1] merged log-probs
+    hyp_ids, hyp_frames = _greedy(canvas, spotter.device)
+    frame_dur = 0.080
+    word_span = tc.WORD_SEC + tc.GAP_SEC
+    timings = [
+        WordTiming(word=tc.word_text(i), start_time=f * frame_dur,
+                   end_time=f * frame_dur + word_span)
+        for i, f in zip(hyp_ids, hyp_frames)
+    ]
+    truth_text = tc.transcript_text(truth)
+    before = " ".join(t.word for t in timings)
+
+    ctx = CustomVocabularyContext(
+        [VocabularyTerm(text=tc.word_text(true_word), aliases=["w13"]),
+         # decoy: alias exact-matches the correctly-spoken w8, but w0 is
+         # acoustically absent — only the CTC-vs-CTC gate can reject it
+         VocabularyTerm(text="w0", aliases=["w8"])],
+        tok, min_term_length=2,
+    )
+    out = ctc_token_rescore(
+        timings, canvas, frame_dur, ctx, tok, blank_id=CTC_BLANK_ID)
+    return {
+        "wer_before": wer(truth_text, before).rate,
+        "wer_after": wer(truth_text, out.text).rate,
+        "corrected": float(any(
+            r.replacement == tc.word_text(true_word) for r in out.replacements
+        )),
+        "false_boost": float("w0" in out.text.split()),
+    }

@@ -146,3 +146,34 @@ def test_entry_points_run_on_the_gpu_unless_told_otherwise(monkeypatch):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         MelFrontend(MelConfig())
     assert MelFrontend(MelConfig(), device="cpu").device == torch.device("cpu")
+
+
+def test_warmup_runs_the_long_form_pipeline_once(managers, monkeypatch):
+    """`warmup()` has JAX's signature and defaults: one pipeline call at
+    (`parallel_chunk_batch`, the chunk layout's window) on zeros with every
+    row full length and a finalize mask of False; both can be given."""
+    from fluidaudio_tpu.asr.chunk import ChunkProcessor as JaxChunkProcessor
+    from fluidaudio_tpu.utils.audio_source import ArrayAudioSource as JaxArraySource
+
+    jax_mgr, port_mgr = managers
+    calls = []
+    build = port_mgr.build_pipeline
+
+    def spy(batch, language=None, stateful=False):
+        fn = build(batch, language, stateful)
+
+        def run(audio, lengths, finalize=None):
+            calls.append((batch, tuple(audio.shape), bool(audio.any()), lengths.tolist(),
+                          finalize.tolist()))
+            return fn(audio, lengths, finalize)
+
+        return run
+
+    monkeypatch.setattr(port_mgr, "build_pipeline", spy)
+    port_mgr.warmup()
+    port_mgr.warmup(batch=3, window_samples=16_000)
+    b = jax_mgr.config.parallel_chunk_batch
+    w = JaxChunkProcessor(JaxArraySource(np.zeros(1, np.float32))).chunk_layout(
+        jax_mgr.config.mel_chunk_context).window_samples
+    assert calls == [(b, (b, w), False, [w] * b, [False] * b),
+                     (3, (3, 16_000), False, [16_000] * 3, [False] * 3)]

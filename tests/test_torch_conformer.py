@@ -106,3 +106,66 @@ def test_out_length_matches_jax():
     b = port.ConformerConfig()
     for n in (1, 2, 7, 8, 9, 100, 1501):
         assert b.out_length(n) == a.out_length(n)
+
+
+# the head widths of the dispatch: Cohere's trained fixture (d 32, 4 heads,
+# Dh 8) and full width (d 1280, 8 heads, Dh 160) lie outside the kernel's
+# range; Dh 16 and 128 inside it
+MHSA_WIDTHS = {"dh8": (32, 4), "dh16": (64, 4), "dh128": (256, 2), "dh160": (1280, 8)}
+
+
+def _mhsa_pair(d_model, n_heads, B=2, T=19, seed=4):
+    """A JAX RelPosMHSA with perturbed parameters and the port's module on
+    the same parameters, plus a seeded input, key lengths and JAX's mask."""
+    cfg = dict(d_model=d_model, n_heads=n_heads, dtype="float32")
+    jax_mhsa = jax_conformer.RelPosMHSA(jax_conformer.ConformerConfig(**cfg))
+    rs = np.random.RandomState(seed)
+    x = rs.randn(B, T, d_model).astype(np.float32)
+    lengths = np.array([T, T - 7][:B], np.int32)
+    pad = np.arange(T)[None, :] < lengths[:, None]
+    att = pad[:, None, :] & pad[:, :, None]
+    params = jax_mhsa.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(att),
+                           jnp.asarray(lengths))
+    params = jax.tree_util.tree_map(
+        lambda p: np.asarray(p) + 0.05 * rs.randn(*p.shape).astype(np.float32), params)
+    port_mhsa = port.RelPosMHSA(port.ConformerConfig(**cfg)).eval()
+    load_state(port_mhsa, from_jax_params(params))
+    return jax_mhsa, params, port_mhsa, x, lengths, att
+
+
+@pytest.mark.parametrize("width", list(MHSA_WIDTHS))
+def test_mhsa_dispatches_by_head_width_and_matches_jax(width, monkeypatch):
+    """`RelPosMHSA.forward` branches on Dh before any launch: the kernel's
+    wrapper where the kernel takes Dh (16..128), the plain version
+    elsewhere (Dh 8, 160), as the JAX module branches between Pallas and
+    einsum. On the CPU both give the JAX einsum path's output on valid
+    query rows (padded rows are masked downstream)."""
+    d_model, n_heads = MHSA_WIDTHS[width]
+    jax_mhsa, params, port_mhsa, x, lengths, att = _mhsa_pair(d_model, n_heads)
+    wrapper_calls = []
+
+    def spy(*args, **kw):
+        wrapper_calls.append(args[0].shape[-1])
+        return relpos_attention(*args, **kw)
+
+    monkeypatch.setattr(port, "relpos_attention", spy)
+    T = x.shape[1]
+    pos = port.rel_sinusoid(T, d_model)
+    plain_before = port.relpos_attention_plain.calls
+    with torch.no_grad():
+        got = port_mhsa(torch.from_numpy(x), pos, torch.from_numpy(lengths)).numpy()
+    want = np.asarray(jax_mhsa.apply(params, jnp.asarray(x), jnp.asarray(att),
+                                     jnp.asarray(lengths)))
+    in_range = port.kernel_takes_head_dim(d_model // n_heads)
+    assert in_range == (width in ("dh16", "dh128"))
+    assert wrapper_calls == ([d_model // n_heads] if in_range else [])
+    assert port.relpos_attention_plain.calls == plain_before + 1  # the CPU runs plain
+    for b, n in enumerate(lengths):
+        np.testing.assert_allclose(got[b, :n], want[b, :n], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("head_dim,takes", [(8, False), (15, False), (16, True), (64, True),
+                                            (120, False), (128, True), (144, False),
+                                            (160, False)])
+def test_kernel_head_width_predicate(head_dim, takes):
+    assert port.kernel_takes_head_dim(head_dim) is takes

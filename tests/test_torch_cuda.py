@@ -376,3 +376,89 @@ def test_streaming_fixtures_on_card_match_cpu(cuda):
             multi = card.flush_multi(session)
             assert [m.token_ids for m in multi] == [f.token_ids for f in finals]
             assert [m.timestamps_ms for m in multi] == [f.timestamps_ms for f in finals]
+
+
+# head widths of the attention dispatch: outside the kernel's range (Cohere's
+# trained fixture, Dh 8; its full width, Dh 160) and inside it (v3, Dh 128)
+MHSA_WIDTHS = [("dh8", 32, 4, 0), ("dh160", 1280, 8, 0), ("dh128", 1024, 8, 1)]
+
+
+@pytest.mark.parametrize("name,d_model,n_heads,launches", MHSA_WIDTHS,
+                         ids=[w[0] for w in MHSA_WIDTHS])
+def test_mhsa_dispatch_on_the_card_matches_cpu(cuda, name, d_model, n_heads, launches):
+    """f32 `RelPosMHSA` on the card against the CPU within 1e-4 on valid
+    rows: outside the kernel's head widths it runs the plain version on the
+    card (0 launches, 1 plain call); at Dh 128 it launches the kernel once."""
+    import copy
+
+    from fluidaudio_tpu_torch.models import conformer as cf
+    from fluidaudio_tpu_torch.models.zoo import random_init_
+
+    cpu_mhsa = cf.RelPosMHSA(cf.ConformerConfig(d_model=d_model, n_heads=n_heads,
+                                                dtype="float32")).eval()
+    random_init_(cpu_mhsa, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        cpu_mhsa.pos_bias_u.normal_(0, 0.1, generator=torch.Generator().manual_seed(1))
+    card_mhsa = copy.deepcopy(cpu_mhsa).to(cuda)
+    B, T = 2, 47
+    x = torch.randn(B, T, d_model, generator=torch.Generator().manual_seed(2))
+    lengths = torch.tensor([T, 30], dtype=torch.int32)
+    pos = cf.rel_sinusoid(T, d_model)
+    want = cpu_mhsa(x, pos, lengths)
+    a0, p0 = attn.relpos_attention.launches, attn.relpos_attention_plain.calls
+    with torch.no_grad():
+        got = card_mhsa(x.to(cuda), pos.to(cuda), lengths.to(cuda))
+    torch.cuda.synchronize()
+    assert attn.relpos_attention.launches - a0 == launches
+    assert attn.relpos_attention_plain.calls - p0 == 1 - launches
+    for b, n in enumerate(lengths.tolist()):
+        torch.testing.assert_close(got[b, :n].cpu(), want[b, :n].detach(), rtol=1e-4, atol=1e-4)
+
+
+def test_ctc_greedy_decode_on_the_card_matches_cpu(cuda):
+    """The device-side collapse and left-pack (a stable sort of an int32 key)
+    equal the CPU's tokens, frames and counts, padding included."""
+    from fluidaudio_tpu_torch.ops.ctc_decode import ctc_greedy_decode
+
+    g = torch.Generator().manual_seed(3)
+    B, T, V = 6, 188, 1025
+    logits = torch.randn(B, T, V, generator=g)
+    best = torch.randint(0, V, (B, T), generator=g)
+    best[:, 1::2] = best[:, 0::2]  # repeats
+    best[-1] = V - 1  # an all-blank row
+    logits.scatter_(2, best[..., None], 9.0)
+    lp = torch.log_softmax(logits, dim=-1)
+    lengths = torch.tensor([T, 100, 0, 1, 57, T], dtype=torch.int32)
+    want = ctc_greedy_decode(lp, lengths, V - 1)
+    got = ctc_greedy_decode(lp.to(cuda), lengths.to(cuda), V - 1)
+    for g_, w in zip(got, want):
+        assert g_.device.type == "cuda" and g_.dtype == torch.int32
+        assert torch.equal(g_.cpu(), w)
+
+
+def test_keyword_spotter_two_chunks_on_the_card_matches_cpu(cuda):
+    """The trained `ctc` fixture spotter (Dh 16: the attention kernel) on a
+    17 s utterance, two chunks and a seam: the card's canvas within 1e-4 of
+    the CPU's, 2 layers x 2 chunks of kernel launches, the same spots."""
+    from fluidaudio_tpu_torch.train import fixtures as fx
+    from fluidaudio_tpu_torch.train import tiny_corpus as tc
+
+    terms = ["w0 w3", "w5", "w1 w2 w6"]
+    card, _ = fx._ctc_spotter(terms, device=cuda)
+    cpu, _ = fx._ctc_spotter(terms, device="cpu")
+    rs = np.random.RandomState(2024)
+    seq = list(rs.randint(8, tc.N_WORDS, size=34))
+    for pos, ids in ((3, [0, 3]), (17, [5]), (30, [1, 2, 6])):
+        seq[pos:pos] = ids
+    audio = tc.make_utterance(np.asarray(seq), rs)
+    a0 = attn.relpos_attention.launches
+    got = card.log_probs(audio)
+    assert attn.relpos_attention.launches - a0 == 2 * 2
+    want = cpu.log_probs(audio)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    card_spots, cpu_spots = card.spot(audio), cpu.spot(audio)
+    assert len(card_spots) == len(cpu_spots) >= 3
+    for c, w in zip(card_spots, cpu_spots):
+        assert (c.keyword, c.start_frame, c.end_frame) == (w.keyword, w.start_frame, w.end_frame)
+        assert c.score == pytest.approx(w.score, abs=1e-4)

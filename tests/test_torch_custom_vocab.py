@@ -1,0 +1,129 @@
+"""Custom vocabulary of the PyTorch port (`asr/custom_vocab/`) against JAX.
+
+The port's `bktree`, `context`, `ctc_spotter` and `rescorer` are copies of
+the JAX package's (they import no JAX). Every case of
+`tests/test_custom_vocab.py` runs here against the port's modules: the JAX
+test module's source is loaded with its `fluidaudio_tpu.` imports pointed
+at `fluidaudio_tpu_torch.` (`jax_cases`, shared with the other port test
+files), so each case asserts the same outputs of the port. Then the CTC
+keyword DP, `spot_keywords` and `ctc_token_rescore` are held against the
+JAX functions on the same seeded inputs.
+"""
+
+from __future__ import annotations
+
+import inspect
+import re
+import types
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from fluidaudio_tpu.asr.custom_vocab import context as jax_context
+from fluidaudio_tpu.asr.custom_vocab import ctc_spotter as jax_spotter
+from fluidaudio_tpu.asr.custom_vocab import rescorer as jax_rescorer
+from fluidaudio_tpu.asr.tokenizer import Tokenizer as JaxTokenizer
+from fluidaudio_tpu.train.fixtures import trained_assets_dir
+from fluidaudio_tpu_torch.asr.custom_vocab import context as port_context
+from fluidaudio_tpu_torch.asr.custom_vocab import ctc_spotter as port_spotter
+from fluidaudio_tpu_torch.asr.custom_vocab import rescorer as port_rescorer
+from fluidaudio_tpu_torch.asr.tokenizer import Tokenizer as PortTokenizer
+
+
+def jax_cases(test_file: str, modules=("",), select=None) -> list:
+    """The test functions and test-class methods of the JAX package's test
+    module `tests/<test_file>`, loaded with the imports of `modules`
+    (dotted names under `fluidaudio_tpu`; "" means every one) pointed at
+    the port's. Only cases that take no fixture are kept, and with
+    `select` only those whose qualified name starts with one of its
+    prefixes. -> pytest.param(callable, id=qualified name) per case."""
+    path = Path(__file__).with_name(test_file)
+    src = path.read_text()
+    for name in modules:
+        pattern = r"\bfluidaudio_tpu\." + (re.escape(name) + r"\b" if name else "")
+        src = re.sub(pattern, "fluidaudio_tpu_torch." + name, src)
+    mod = types.ModuleType(f"ported_{path.stem}")
+    mod.__file__ = str(path)
+    exec(compile(src, str(path), "exec"), mod.__dict__)
+
+    cases = []
+    for name, obj in vars(mod).items():
+        if name.startswith("test_") and inspect.isfunction(obj):
+            members = [(name, obj, obj)]
+        elif name.startswith("Test") and inspect.isclass(obj):
+            members = [(f"{name}.{m}", fn, lambda cls=obj, m=m: getattr(cls(), m)())
+                       for m, fn in vars(obj).items()
+                       if m.startswith("test_") and inspect.isfunction(fn)]
+        else:
+            continue
+        for qualname, fn, run in members:
+            takes_fixtures = [p for p in inspect.signature(fn).parameters if p != "self"]
+            if takes_fixtures or (select and not qualname.startswith(tuple(select))):
+                continue
+            cases.append(pytest.param(run, id=qualname))
+    return cases
+
+
+@pytest.mark.parametrize("case", jax_cases("test_custom_vocab.py"))
+def test_jax_custom_vocab_case_on_the_port(case):
+    case()
+
+
+def _log_probs(seed: int, T: int = 60, V: int = 17) -> np.ndarray:
+    rs = np.random.RandomState(seed)
+    logits = rs.randn(T, V).astype(np.float32) * 3.0
+    logits[:, V - 1] += 2.0  # blank-heavy, as a trained CTC head is
+    return (logits - np.log(np.exp(logits).sum(axis=1, keepdims=True))).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_keyword_dp_and_spots_equal_jax(seed):
+    lp = _log_probs(seed)
+    blank = lp.shape[1] - 1
+    keywords = {"acme": [0, 1], "corp": [2, 3], "foo": [14, 15, 15], "the": [4]}
+    for tokens in keywords.values():
+        want = jax_spotter.ctc_keyword_dp(lp.astype(np.float64), tokens, blank)
+        got = port_spotter.ctc_keyword_dp(lp.astype(np.float64), tokens, blank)
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(g, w)
+    for kw in (dict(), dict(temperature=1.5, blank_bias=-0.5, min_score=-6.0)):
+        want = jax_spotter.spot_keywords(lp, keywords, blank, **kw)
+        got = port_spotter.spot_keywords(lp, keywords, blank, **kw)
+        assert [vars(s) for s in got] == [vars(s) for s in want]
+
+
+def test_ctc_token_rescore_equals_jax():
+    """The CTC-vs-CTC rescorer on the trained `ctc` fixture's vocabulary
+    (w0..w15, blank 16) and seeded log-probs in which the hypothesis word
+    w13 sits over frames that favour w12, and an alias decoy: the same text
+    and replacements (with their scores), some of them taken."""
+    rs = np.random.RandomState(7)
+    logits = rs.randn(60, 17).astype(np.float32)
+    logits[:, 16] += 3.0
+    words = ["w5", "w13", "w8", "w1"]
+    for i, w in enumerate(words):
+        f0 = int(0.42 * i / 0.08) + 1
+        if w == "w13":
+            logits[f0:f0 + 2, 12] += 3.5
+            logits[f0:f0 + 2, 13] += 3.0
+        else:
+            logits[f0:f0 + 2, int(w[1:])] += 6.0
+    lp = (logits - np.log(np.exp(logits).sum(axis=1, keepdims=True))).astype(np.float32)
+    vocab_json = trained_assets_dir() / "ctc" / "vocab.json"
+
+    def run(tok_cls, context_mod, rescorer_mod):
+        tok = tok_cls.from_json(vocab_json)
+        ctx = context_mod.CustomVocabularyContext(
+            [context_mod.VocabularyTerm(text="w12", aliases=["w13"]),
+             context_mod.VocabularyTerm(text="w0", aliases=["w8"])],
+            tok, min_term_length=2)
+        timings = [rescorer_mod.WordTiming(word=w, start_time=0.42 * i,
+                                           end_time=0.42 * (i + 1))
+                   for i, w in enumerate(words)]
+        out = rescorer_mod.ctc_token_rescore(timings, lp, 0.08, ctx, tok, blank_id=16)
+        return out.text, [vars(r) for r in out.replacements]
+
+    got = run(PortTokenizer, port_context, port_rescorer)
+    assert got == run(JaxTokenizer, jax_context, jax_rescorer)
+    assert got[1]  # the case replaces something

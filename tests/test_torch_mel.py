@@ -105,3 +105,18 @@ def test_int_lengths_default_to_full_rows_and_1d_input():
     got, got_len = port.MelFrontend(cfg, device="cpu")(torch.from_numpy(x))
     assert got.shape == (1, 128, cfg.num_frames(4000))
     assert int(got_len[0]) == cfg.num_frames(4000)
+
+
+@pytest.mark.parametrize("center,normalize", [(True, "per_feature"), (False, None)])
+def test_log_mel_numpy_copy_equals_jax(center, normalize):
+    """The port's copy of the host reference `log_mel_numpy` (exported from
+    `fluidaudio_tpu_torch.ops`) is the JAX package's, bit for bit."""
+    from fluidaudio_tpu.ops.mel import MelConfig as JaxMelConfig
+    from fluidaudio_tpu.ops.mel import log_mel_numpy as jax_log_mel_numpy
+    from fluidaudio_tpu_torch.ops import MelConfig, log_mel_numpy
+
+    audio = (np.random.RandomState(5).randn(4_000) * 0.1).astype(np.float32)
+    got = log_mel_numpy(audio, MelConfig(center=center, normalize=normalize), last_sample=0.3)
+    want = jax_log_mel_numpy(audio, JaxMelConfig(center=center, normalize=normalize),
+                             last_sample=0.3)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
