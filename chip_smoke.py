@@ -92,11 +92,35 @@ line is not printed:
      counted on its own; timing (card name and power limit on every line):
      the spotter's ms per chunk, the spotting DP for 20 terms, the greedy
      CTC decode, ms per window of each facade against its new audio with
-     launches and idle share per window, and `arbitrate`.
+     launches and idle share per window, and `arbitrate`;
+ 13. the registry on the card: with `checkpoint_dir=None` the trained `asr`,
+     `ctc` and `eou` fixtures staged in a temporary offline model cache
+     (`FLUID_CACHE_DIR`, `FLUID_OFFLINE=1`) under their registry folders
+     load through `DownloadUtils.repo_dir` / `ensure_repo` and give what the
+     explicit folders give (`AsrModels.load(allow_random_init=False)`, the
+     keyword spotter, the EOU manager); an empty cache raises OfflineError;
+ 14. the trained `sensevoice`, `paraformer`, `cohere` and `vad` fixtures on
+     the card against the port on the CPU: the same texts and WER, the same
+     VAD F1, chunk probabilities within 1e-5, the same segments and
+     streaming events; no kernel launched;
+ 15. SenseVoice Small, Paraformer-large, Cohere (48 x 1280, Dh 160) and
+     Silero v5 at full width with seeded random weights drawn on the card:
+     SenseVoice on a 30 s bucket and 75 s long-form, Paraformer on 20 s,
+     Cohere on one window (34.99 s, the per-call cap) and two (64.98 s, one
+     batch) with its decode steps and host syncs per batch of windows, Silero `process_batch` of
+     64 x 60 s rows and 100 streaming 256 ms chunks; every path counted (0
+     kernel launches; the Cohere encoder's 48 layers take the plain
+     attention, 48 calls per encoder call); timing (card name and power limit on
+     every line): ms per request (host wall, median after warm-up), RTFx,
+     launches, idle share and peak memory; then full width at reduced depth
+     in f32 (SenseVoice 2 + 2 SANM blocks, Paraformer 4 + 2, Cohere 4
+     encoder + 2 decoder layers, Silero) on the card against the CPU:
+     outputs within 1e-4 relative L2 (Silero 1e-5 abs) and tokens equal.
 
 The line before the last is the kernel record (JSON, with each kernel's
-launches on its main path and on each path of phases 11-12, bound and
-times); the last line is
+launches on its main path and on each path of phases 11-15, the plain
+attention's calls on the paths that take it, bound and times); the last
+line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
 
@@ -1591,6 +1615,478 @@ def phase_facades_full_width(attn, i8, device, smi: str) -> dict:
     return out
 
 
+# ------------------------------------- registry, SenseVoice, Paraformer, Cohere, VAD
+
+TRAINED_CTC = TRAINED / "ctc"
+# card against CPU at full width: encoder outputs in relative L2 (true f32 on both)
+FAMILY_CARD_TOL = 1e-4
+VAD_PROB_TOL = 1e-5
+VAD_ROWS, VAD_ROW_S = 64, 60.0  # the Silero batch of phase 15
+
+
+def peak_gib(fn):
+    """fn's result and the peak device memory it allocated, in GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2**30
+
+
+def fixture_utterances(seed: int, n: int, max_words: int):
+    """(transcript, audio) draws of the family fixture evaluations."""
+    from fluidaudio_tpu_torch.train import tiny_corpus as tc
+
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ids = rs.randint(0, tc.N_WORDS, size=int(rs.randint(2, max_words)))
+        out.append((tc.transcript_text(ids), tc.make_utterance(ids, rs)))
+    return out
+
+
+class model_cache:
+    """A temporary offline model cache (`FLUID_CACHE_DIR`, `FLUID_OFFLINE=1`)
+    holding copies of trained fixtures under their registry folders."""
+
+    def __init__(self, fixtures: dict):
+        import tempfile
+
+        self.tmp = tempfile.TemporaryDirectory()
+        self.fixtures = fixtures
+
+    def __enter__(self):
+        import os
+        import shutil
+
+        self.saved = {k: os.environ.get(k) for k in ("FLUID_CACHE_DIR", "FLUID_OFFLINE")}
+        os.environ["FLUID_CACHE_DIR"] = self.tmp.name
+        os.environ["FLUID_OFFLINE"] = "1"
+        for repo, src in self.fixtures.items():
+            shutil.copytree(src, Path(self.tmp.name) / "Models" / repo.folder_name)
+        return self
+
+    def __exit__(self, *exc):
+        import os
+
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        self.tmp.cleanup()
+
+
+def phase_registry(attn, i8, device) -> dict:
+    """Phase 13: checkpoint_dir=None resolves through the model cache on the
+    card: `AsrModels.load("test-tiny", allow_random_init=False)`, the
+    keyword spotter and the EOU manager from a cache holding the trained
+    `asr`, `ctc` and `eou` fixtures give what the explicit folders give; an
+    empty offline cache raises OfflineError. -> launches on this path."""
+    from fluidaudio_tpu_torch.asr import streaming_eou as eou
+    from fluidaudio_tpu_torch.asr.config import ASRConfig
+    from fluidaudio_tpu_torch.asr.custom_vocab.context import (
+        CustomVocabularyContext, VocabularyTerm)
+    from fluidaudio_tpu_torch.asr.keyword_spotter import CtcKeywordSpotter, KeywordSpotterConfig
+    from fluidaudio_tpu_torch.asr.manager import AsrManager
+    from fluidaudio_tpu_torch.asr.tokenizer import Tokenizer
+    from fluidaudio_tpu_torch.models.zoo import AsrModels
+    from fluidaudio_tpu_torch.registry import OfflineError, Repo
+    from fluidaudio_tpu_torch.train import fixtures as fx
+    from fluidaudio_tpu_torch.train import tiny_corpus as tc
+
+    utts = fixture_utterances(12345, 3, 12)
+    tail = np.zeros(int(1.3 * 16_000), np.float32)
+    terms = ["w0 w3", "w5", "w11"]
+
+    def run_all(ckpt):
+        models = AsrModels.load("test-tiny", checkpoint_dir=ckpt and TRAINED_ASR,
+                                allow_random_init=False, device=device)
+        asr = AsrManager(models, ASRConfig(parallel_chunk_batch=2))
+        spotter = CtcKeywordSpotter(
+            CustomVocabularyContext([VocabularyTerm(text=t) for t in terms],
+                                    Tokenizer.from_json(TRAINED_CTC / "vocab.json"),
+                                    min_term_length=2),
+            KeywordSpotterConfig(vocab_size=tc.N_WORDS), fx.ctc_tiny_enc_cfg(),
+            checkpoint_dir=ckpt and TRAINED_CTC, device=device)
+        stream = eou.StreamingEouAsrManager(chunk_ms=320, spec=eou.EOU_TEST,
+                                            checkpoint_dir=ckpt and TRAINED_EOU, device=device)
+        out = []
+        for _, audio in utts:
+            state = stream.make_state()
+            stream.process(np.concatenate([audio, tail]), state)
+            out.append((asr.transcribe(audio).text, stream.finish(state).text,
+                        sorted((s.keyword, s.start_frame, s.end_frame)
+                               for s in spotter.spot(audio))))
+        return out
+
+    with model_cache({Repo.PARAKEET_V3: TRAINED_ASR, Repo.PARAKEET_CTC_0_6B: TRAINED_CTC,
+                      Repo.PARAKEET_EOU: TRAINED_EOU}):
+        cached, counts = counted(attn, i8, lambda: run_all(None))
+    explicit = run_all(True)
+    check(cached == explicit, f"model cache vs explicit folders: {cached} != {explicit}")
+    check(all(a == t and e == t for (t, _), (a, e, _) in zip(utts, cached)),
+          "registry: the cached fixtures' texts are not the transcripts")
+    with model_cache({}):
+        try:
+            AsrModels.load("test-tiny", allow_random_init=False, device=device)
+        except OfflineError as exc:
+            raised = str(exc)
+        else:
+            raised = ""
+    check("encoder.npz" in raised, f"empty offline cache: no OfflineError ({raised!r})")
+    print(f"phase 13 registry on the card: checkpoint_dir=None from a temporary model cache "
+          f"(parakeet-v3 <- asr, parakeet-ctc-0.6b <- ctc, parakeet-eou <- eou) == the explicit "
+          f"folders for AsrModels.load(allow_random_init=False), CtcKeywordSpotter and "
+          f"StreamingEouAsrManager on {len(utts)} utterances (every text the transcript) | empty "
+          f"offline cache -> OfflineError | launches {counts}")
+    return counts
+
+
+def family_fixture_runs(device):
+    """The four trained family fixtures through the port's managers on
+    `device`: texts, WERs, VAD F1, chunk probabilities, segments and
+    streaming events."""
+    from fluidaudio_tpu_torch.asr.cohere_manager import CoherePipeline
+    from fluidaudio_tpu_torch.asr.paraformer_manager import ParaformerManager
+    from fluidaudio_tpu_torch.asr.sensevoice_manager import SenseVoiceManager
+    from fluidaudio_tpu_torch.models.paraformer import PARAFORMER_TEST
+    from fluidaudio_tpu_torch.models.sensevoice import SENSEVOICE_TEST
+    from fluidaudio_tpu_torch.train import fixtures as fx
+    from fluidaudio_tpu_torch.vad import VadManager, VadSegmentationConfig
+
+    out = {}
+    for name, make, seed, max_words, evaluate in (
+            ("sensevoice", lambda: SenseVoiceManager(
+                SENSEVOICE_TEST, checkpoint_dir=TRAINED / "sensevoice", device=device),
+             321, 9, fx.eval_sensevoice_fixture),
+            ("paraformer", lambda: ParaformerManager(
+                PARAFORMER_TEST, checkpoint_dir=TRAINED / "paraformer", device=device),
+             654, 9, fx.eval_paraformer_fixture),
+            ("cohere", lambda: CoherePipeline(
+                fx.cohere_tiny_config(), checkpoint_dir=TRAINED / "cohere", device=device),
+             987, 8, fx.eval_cohere_fixture)):
+        mgr = make()
+        texts = [mgr.transcribe(a).text for _, a in fixture_utterances(seed, 6, max_words)]
+        out[name] = (texts, evaluate(device=device))
+    vad = VadManager(checkpoint_dir=TRAINED / "vad", device=device)
+    clips = [c for _, c in fx.vad_fixture_clips()]
+    probs = [np.array([r.probability for r in vad.process(c)]) for c in clips]
+    batch = [np.array([r.probability for r in rs]) for rs in vad.process_batch(clips)]
+    long = np.concatenate(clips)
+    seg = VadSegmentationConfig(min_speech_duration=0.2, min_silence_duration=0.3)
+    segments = [(s.start_time, s.end_time) for s in vad.segment_speech(long, seg)]
+    state, events = vad.make_stream_state(), []
+    for start in range(0, long.size, 4096):
+        res = vad.process_streaming_chunk(long[start:start + 4096], state,
+                                          VadSegmentationConfig(min_silence_duration=0.3))
+        state = res.state
+        if res.event is not None:
+            events.append((res.event.kind, res.event.sample_index))
+    out["vad"] = (fx.eval_vad_fixture(device=device), probs, batch, segments, events)
+    return out
+
+
+def phase_family_fixtures(attn, i8, device) -> dict:
+    """Phase 14: the trained sensevoice, paraformer, cohere and vad fixtures
+    on the card against the port on the CPU. -> launches per path."""
+    out, c = counted(attn, i8, lambda: family_fixture_runs(device))
+    cpu = family_fixture_runs("cpu")
+    parts = []
+    for name in ("sensevoice", "paraformer", "cohere"):
+        (texts, rate), (cpu_texts, cpu_rate) = out[name], cpu[name]
+        check(texts == cpu_texts and rate == cpu_rate,
+              f"{name}: card texts/WER differ from the CPU ({rate} vs {cpu_rate})")
+        check(rate <= 0.05, f"{name} fixture WER {rate}")
+        parts.append(f"{name} WER {rate:.4f} (6 utterances, same texts as CPU)")
+    f1, probs, batch, segments, events = out["vad"]
+    c_f1, c_probs, c_batch, c_segments, c_events = cpu["vad"]
+    err = max(float(np.abs(a - b).max()) for a, b in zip(probs + batch, c_probs + c_batch))
+    check(f1 == c_f1 and f1 >= 0.9, f"vad F1 {f1} vs CPU {c_f1}")
+    check(err <= VAD_PROB_TOL, f"vad chunk probabilities card vs CPU max abs {err}")
+    check(segments == c_segments and events == c_events and segments and events,
+          "vad segments or streaming events differ from the CPU")
+    check(c["relpos_attention"] == 0 and c["int8_matmul_fused"] == 0,
+          f"family fixtures launched a kernel: {c}")
+    print(f"phase 14 trained family fixtures on the card vs the CPU port: {' | '.join(parts)} "
+          f"| vad F1 {f1:.4f} (= CPU), chunk probabilities max abs {err:.2e} (tol "
+          f"{VAD_PROB_TOL}, process and process_batch), {len(segments)} segments and "
+          f"{len(events)} streaming events equal | launches {c} (the cohere encoder's 2 Dh-8 "
+          f"layers take the plain attention)")
+    return {"family fixtures (phase 14)": c}
+
+
+def reduced_depth_parity(device) -> str:
+    """Full width, reduced depth, f32, seeded random weights drawn on the
+    card and copied to the CPU: SenseVoice (2 + 2 SANM blocks), Paraformer
+    (4 encoder + 2 decoder blocks), Cohere (4 encoder + 2 decoder layers),
+    Silero; the card's outputs against the CPU's."""
+    from dataclasses import replace
+
+    from fluidaudio_tpu_torch.models import cohere_asr as co
+    from fluidaudio_tpu_torch.models import paraformer as pf
+    from fluidaudio_tpu_torch.models import sensevoice as sv
+    from fluidaudio_tpu_torch.models import silero_vad as sil
+    from fluidaudio_tpu_torch.models.zoo import random_init_
+    from fluidaudio_tpu_torch.ops.ctc_decode import ctc_greedy_decode
+
+    def pair(make, seed):
+        on_card = make(device).eval()
+        random_init_(on_card, torch.Generator(device=device).manual_seed(seed))
+        on_cpu = make("cpu").eval()
+        on_cpu.load_state_dict({k: v.cpu() for k, v in on_card.state_dict().items()})
+        return on_card, on_cpu
+
+    def both(fn, *arrays):
+        return [fn(dev, *[torch.from_numpy(a).to(dev) for a in arrays])
+                for dev in (device, "cpu")]
+
+    rs = np.random.RandomState(15)
+    parts = []
+    scfg = replace(sv.SENSEVOICE_SMALL, n_layers=2, tp_blocks=2, dtype="float32")
+    enc = pair(lambda d: sv.SenseVoiceEncoder(scfg, device=d), 1)
+    lfr = rs.randn(1, 500, 560).astype(np.float32)
+    lp = both(lambda d, x, n, lang: enc[d == "cpu"](x, n, lang), lfr,
+              np.array([480], np.int32), np.array([2], np.int32))
+    err = rel_l2(lp[0].cpu(), lp[1])
+    toks = [ctc_greedy_decode(x, torch.tensor([484], device=x.device), 0) for x in lp]
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(toks[0], toks[1]))
+    check(err <= FAMILY_CARD_TOL and same, f"SenseVoice card vs CPU: rel L2 {err}, tokens {same}")
+    parts.append(f"SenseVoice 4 SANM blocks x 512, 30 s: log-probs rel L2 {err:.2e}, "
+                 f"CTC tokens equal ({int(toks[0][2][0])})")
+
+    pcfg = replace(pf.PARAFORMER_LARGE, n_encoder_layers=4, n_decoder_layers=2, dtype="float32")
+    model = pair(lambda d: pf.Paraformer(pcfg, device=d), 2)
+    lfr = rs.randn(1, 334, 560).astype(np.float32)
+    out = both(lambda d, x, n: model[d == "cpu"](x, n), lfr, np.array([334], np.int32))
+    err = rel_l2(out[0][0].cpu(), out[1][0])
+    same = (torch.equal(out[0][1].cpu(), out[1][1])
+            and torch.equal(out[0][0].argmax(-1).cpu(), out[1][0].argmax(-1)))
+    check(err <= FAMILY_CARD_TOL and same, f"Paraformer card vs CPU: rel L2 {err}, {same}")
+    parts.append(f"Paraformer 4 enc + 2 dec x 512, 20 s: logits rel L2 {err:.2e}, CIF count "
+                 f"{int(out[0][1][0])} and tokens equal")
+
+    ccfg = replace(co.COHERE_BASE, n_encoder_layers=4, n_decoder_layers=2, dtype="float32")
+    encoder = pair(lambda d: co.CohereEncoder(ccfg, device=d), 3)
+    decoder = pair(lambda d: co.CohereDecoderStep(ccfg, device=d), 4)
+    mel = rs.randn(1, 128, 3500).astype(np.float32)
+    encs = both(lambda d, m, n: encoder[d == "cpu"](m, n), mel, np.array([3500], np.int32))
+    err = rel_l2(encs[0][0].cpu(), encs[1][0])
+
+    def decode(dec, e, m):
+        cross = dec.cross_kv(e)
+        return co.cohere_greedy_decode(
+            ccfg, lambda t, p, k, v, e_, m_: dec(t, p, k, v, e_, m_, cross=cross), e, m)
+
+    decs = [decode(dec, e, m) for (e, m), dec in zip(encs, decoder)]
+    same = torch.equal(decs[0].tokens.cpu(), decs[1].tokens) and torch.equal(
+        decs[0].counts.cpu(), decs[1].counts)
+    check(err <= FAMILY_CARD_TOL and same, f"Cohere card vs CPU: rel L2 {err}, tokens {same}")
+    # the same math per row: 4 windows in one batch against each alone, on the card
+    mels = np.concatenate([mel, rs.randn(3, 128, 3500).astype(np.float32)])
+    e4, m4 = encoder[0](torch.from_numpy(mels).to(device),
+                        torch.full((4,), 3500, dtype=torch.int32, device=device))
+    batch = decode(decoder[0], e4, m4)
+    batch_err, rows_same = 0.0, 0
+    for r in range(4):
+        e1, m1 = encoder[0](torch.from_numpy(mels[r : r + 1]).to(device),
+                            torch.tensor([3500], dtype=torch.int32, device=device))
+        alone = decode(decoder[0], e1, m1)
+        batch_err = max(batch_err, rel_l2(e4[r : r + 1], e1))
+        rows_same += int(torch.equal(alone.tokens[0], batch.tokens[r])
+                         and torch.equal(alone.counts[0], batch.counts[r]))
+    check(batch_err <= FAMILY_CARD_TOL and rows_same == 4,
+          f"Cohere batch of 4 vs alone: rel L2 {batch_err}, {rows_same}/4 rows equal")
+    parts.append(f"Cohere 4 enc x 1280 (Dh 160) + 2 dec x 1024, 35 s: encoder rel L2 {err:.2e}, "
+                 f"{int(decs[0].counts[0])} decoded tokens equal; a batch of 4 windows against "
+                 f"each alone on the card: encoder rel L2 {batch_err:.2e}, {rows_same}/4 rows' "
+                 f"tokens equal")
+
+    vad = pair(lambda d: sil.SileroVadV5(device=d), 5)
+    audio = (rs.randn(4, 64 + 64 * 512) * 0.1).astype(np.float32)
+    zeros = np.zeros((4, 128), np.float32)
+    res = both(lambda d, a, h, c, last: sil.vad_frame_program(vad[d == "cpu"], a, h, c, last),
+               audio, zeros, zeros, np.array([63, 40, 5, 0], np.int32))
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(res[0], res[1]))
+    check(err <= VAD_PROB_TOL, f"Silero card vs CPU max abs {err}")
+    parts.append(f"Silero v5 frame program 4 x 64 frames: max abs {err:.2e}")
+    return " | ".join(parts)
+
+
+def time_request(smi: str, label: str, fn, audio_s: float, runs: int = 5) -> str:
+    """Host wall per request (median after one warm-up), RTFx, launches,
+    device busy and idle share (profiler) and peak memory."""
+    ms = host_ms(fn, runs=runs)
+    launches, busy = profile_calls(fn, 1)
+    _, peak = peak_gib(fn)
+    line = (f"timing [{smi}] {label}: median {ms:.3f} ms per request (host wall), RTFx "
+            f"{audio_s / (ms / 1e3):.1f}, {launches:.0f} kernel launches and {busy:.3f} ms device "
+            f"busy per request (profiler), idle share {max(0.0, 1 - busy / ms):.3f}, peak "
+            f"{peak:.2f} GiB")
+    print(line, flush=True)
+    return line
+
+
+def phase_families_full_width(attn, i8, device, smi: str) -> dict:
+    """Phase 15: SenseVoice Small, Paraformer-large, Cohere (COHERE_BASE)
+    and Silero v5 at full width with seeded random weights drawn on the
+    card: each path counted, timed, and the reduced-depth card-vs-CPU
+    parity. -> launches per path."""
+    from fluidaudio_tpu_torch.asr.cohere_manager import CoherePipeline
+    from fluidaudio_tpu_torch.asr.paraformer_manager import ParaformerManager
+    from fluidaudio_tpu_torch.asr.sensevoice_manager import SenseVoiceManager
+    from fluidaudio_tpu_torch.asr.cohere_manager import WINDOW_BATCH
+    from fluidaudio_tpu_torch.vad import VadManager
+    from fluidaudio_tpu_torch.vad.manager import PROGRAM_CACHE_SIZE
+
+    rs = np.random.RandomState(150)
+    paths = {}
+    missing = Path(REPO / "_no_checkpoint")  # seeded random weights on the card
+
+    def path(label, fn, want_plain=0, **expect):
+        out, c = counted(attn, i8, fn)
+        check(c["relpos_attention"] == 0 and c["int8_matmul_fused"] == 0
+              and c["relpos_attention_plain calls"] == want_plain,
+              f"{label}: launches {c}, want 0 kernel launches and {want_plain} plain calls")
+        paths[label] = c
+        return out
+
+    sense = SenseVoiceManager(checkpoint_dir=missing, device=device)
+    a30, a75 = speechlike(rs, 30.0), speechlike(rs, 75.0)
+    r = path("SenseVoice Small, 30 s", lambda: sense.transcribe(a30))
+    check(isinstance(r.text, str) and r.duration == 30.0, "SenseVoice 30 s result")
+    r = path("SenseVoice Small, 75 s", lambda: sense.transcribe(a75))
+    check(r.duration == 75.0, "SenseVoice 75 s result")
+    time_request(smi, "SenseVoice Small (50 + 20 SANM x 512, vocab 25,055, bf16), 30 s bucket",
+                 lambda: sense.transcribe(a30), 30.0)
+    time_request(smi, "SenseVoice Small, 75 s long-form (30 + 30 + 15 s windows)",
+                 lambda: sense.transcribe(a75), 75.0, runs=3)
+    del sense
+
+    para = ParaformerManager(checkpoint_dir=missing, device=device)
+    a20 = speechlike(rs, 20.0)
+    path("Paraformer-large, 20 s", lambda: para.transcribe(a20))
+    time_request(smi, "Paraformer-large (50 enc + 16 dec SANM x 512, vocab 8,404, 128 tokens, "
+                 "bf16), 20 s", lambda: para.transcribe(a20), 20.0)
+    del para
+    torch.cuda.empty_cache()
+
+    cohere, load_gib = peak_gib(lambda: CoherePipeline(checkpoint_dir=missing, device=device))
+    n_layers = cohere.cfg.n_encoder_layers
+    # the per-call cap is (max_audio_frames - 1) hops = 34.99 s, the hop 29.99 s:
+    # the longest inputs of one and of two windows
+    cap = (cohere.cfg.max_audio_frames - 1) * 160
+    one_s, two_s = cap / 16_000, (2 * cap - 80_000) / 16_000
+    a_one, a_two = speechlike(rs, one_s), speechlike(rs, two_s)
+    path(f"Cohere, {one_s:.2f} s (one window)", lambda: cohere.transcribe(a_one),
+         want_plain=n_layers)
+    one = (cohere.window_count, [(w.steps, w.host_syncs) for w in cohere.window_decodes])
+    # the two windows run as one batch: one encoder call (48 plain calls)
+    path(f"Cohere, {two_s:.2f} s (two windows)", lambda: cohere.transcribe(a_two),
+         want_plain=n_layers)
+    two = (cohere.window_count, [(w.steps, w.host_syncs) for w in cohere.window_decodes])
+    check(one[0] == 1 and two[0] == 2 and len(two[1]) == 1, f"Cohere windows {one} {two}")
+    print(f"phase 15 Cohere (48 x 1280 conformer, Dh 160 -> plain attention, 8 x 1024 decoder, "
+          f"vocab 16,384, 108 tokens, bf16, weights {load_gib:.2f} GiB): (windows, [(decode "
+          f"steps, host syncs) per batch of windows]): {one_s:.2f} s {one}, {two_s:.2f} s {two}")
+    time_request(smi, f"Cohere, {one_s:.2f} s window", lambda: cohere.transcribe(a_one), one_s,
+                 runs=3)
+    time_request(smi, f"Cohere, {two_s:.2f} s long-form (2 windows, 5 s overlap, one batch)",
+                 lambda: cohere.transcribe(a_two), two_s, runs=3)
+    # a long input that fills one batch of WINDOW_BATCH windows, each window
+    # then decoded alone: bf16 GEMMs at batch 16 and at batch 1 need not round
+    # alike, so the agreement is recorded, not required
+    hop = cap - 80_000
+    n_win = WINDOW_BATCH
+    a_full = speechlike(rs, 1.0 + (cap + (n_win - 1) * hop) / 16_000)[: cap + (n_win - 1) * hop]
+    full_s = a_full.size / 16_000
+    path(f"Cohere, {full_s:.2f} s ({n_win} windows)", lambda: cohere.transcribe(a_full),
+         want_plain=n_layers)
+    check(cohere.window_count == n_win and len(cohere.window_decodes) == 1,
+          f"Cohere {full_s:.2f} s: {cohere.window_count} windows in "
+          f"{len(cohere.window_decodes)} batches")
+    batch = cohere.window_decodes[0]
+    same, first_diff = 0, []
+    for w in range(n_win):
+        seg = torch.from_numpy(a_full[w * hop : w * hop + cap]).to(device)[None]
+        alone = cohere.run_window(seg, torch.tensor([cap], dtype=torch.int32, device=device))
+        n = int(alone.counts[0])
+        if n == int(batch.counts[w]) and torch.equal(alone.tokens[0, :n], batch.tokens[w, :n]):
+            same += 1
+        else:
+            diff = (alone.tokens[0] != batch.tokens[w]).nonzero()
+            first_diff.append((w, int(diff[0]) if diff.numel() else n))
+    print(f"phase 15 Cohere, {n_win} windows in one batch against each window alone (bf16): "
+          f"{same}/{n_win} windows with equal tokens and counts; (window, first differing "
+          f"position) {first_diff}; batch steps {batch.steps}, host syncs {batch.host_syncs}")
+    time_request(smi, f"Cohere, {full_s:.2f} s long-form ({n_win} windows, one batch)",
+                 lambda: cohere.transcribe(a_full), full_s, runs=1)
+    del cohere
+    torch.cuda.empty_cache()
+
+    vad = VadManager(checkpoint_dir=missing, device=device)
+    rows = [speechlike(rs, VAD_ROW_S) for _ in range(VAD_ROWS)]
+    chunks = -(-int(VAD_ROW_S * 16_000) // 4096)
+    frames = (1 << (chunks - 1).bit_length()) * 8  # the power-of-two bucket, 8 frames a chunk
+    label = f"Silero process_batch {VAD_ROWS} x {VAD_ROW_S:.0f} s"
+    res = path(label, lambda: vad.process_batch(rows))
+    check(len(res) == VAD_ROWS and all(len(r) == chunks for r in res)
+          and all(0.0 <= x.probability <= 1.0 for r in res for x in r), "Silero batch results")
+    line = time_request(smi, f"Silero v5 {label[7:]} (one bucket of {frames} frames, CUDA graph "
+                        "per (batch, bucket))", lambda: vad.process_batch(rows),
+                        VAD_ROWS * VAD_ROW_S)
+    ms = float(re.search(r"median ([0-9.]+) ms", line).group(1))
+    # the frame program alone (its CUDA graph replay), against the whole call
+    prog = vad._frame_program(VAD_ROWS, frames, np.float32)
+    g = torch.Generator(device=device).manual_seed(151)
+    audio_t = torch.randn(VAD_ROWS, 64 + frames * 512, generator=g, device=device) * 0.1
+    h0 = torch.zeros(VAD_ROWS, 128, device=device)
+    last = torch.full((VAD_ROWS,), frames - 1, dtype=torch.int32, device=device)
+    prog_ms = cuda_ms(lambda: prog(audio_t, h0, h0, last), iters=5)
+    print(f"timing [{smi}] Silero batch: the frame program alone {prog_ms:.3f} ms (CUDA events), "
+          f"{prog_ms / frames:.4f} ms per frame step of the recurrence ({VAD_ROWS} rows x 32 ms "
+          f"each); the rest of the {ms:.3f} ms call is host packing and results")
+    stream = speechlike(rs, 100 * 0.256)
+
+    def hundred_chunks():
+        state = vad.make_stream_state()
+        for i in range(100):
+            state = vad.process_streaming_chunk(stream[i * 4096:(i + 1) * 4096], state).state
+        return state
+
+    path("Silero streaming, 100 x 256 ms chunks", hundred_chunks)
+    line = time_request(smi, "Silero v5 streaming, 100 chunks of 256 ms (8 frames each, one "
+                        "call per chunk)", hundred_chunks, 25.6, runs=3)
+    ms = float(re.search(r"median ([0-9.]+) ms", line).group(1))
+    print(f"timing [{smi}] Silero streaming: {ms / 100:.3f} ms per 256 ms chunk, "
+          f"{ms / 800:.4f} ms per frame")
+    # more (batch, bucket) shapes than the manager keeps: the device memory
+    # its CUDA graphs hold, after each new shape
+    torch.cuda.synchronize()
+    held = [f"before {torch.cuda.memory_reserved() / 2**30:.3f}"]
+    for b, secs in ((32, 60.0), (64, 30.0), (16, 60.0), (64, 15.0), (8, 60.0), (48, 45.0),
+                    (64, 8.0), (4, 60.0), (24, 20.0), (64, 60.0)):
+        vad.process_batch([r[: int(secs * 16_000)] for r in rows[:b]])
+        torch.cuda.synchronize()
+        held.append(f"{b}x{secs:.0f}s {torch.cuda.memory_reserved() / 2**30:.3f}")
+    programs = list(vad._program_cache.values())
+    check(len(programs) <= PROGRAM_CACHE_SIZE
+          and all(p.pool is vad._graph_pool and p.stream is vad._warmup_stream
+                  and p.graph is not None for p in programs),
+          f"Silero graphs: {len(programs)} kept, pools shared "
+          f"{[p.pool is vad._graph_pool for p in programs]}")
+    print(f"phase 15 Silero graph memory [{smi}]: torch.cuda.memory_reserved GiB after each new "
+          f"(rows x seconds) shape: {', '.join(held)}; {len(programs)} programs kept (limit "
+          f"{PROGRAM_CACHE_SIZE}, one shared pool and warm-up stream), "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    del vad
+    torch.cuda.empty_cache()
+
+    print(f"phase 15 full width, reduced depth, f32, card vs CPU (tol {FAMILY_CARD_TOL} rel L2): "
+          f"{reduced_depth_parity(device)}")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU", file=sys.stderr)
@@ -1627,6 +2123,12 @@ def main() -> int:
     paths["keyword spotter 0.6B, 40 s"], _ = phase_spotter_full_width(attn, i8, device, smi)
     paths.update(phase_facades_full_width(attn, i8, device, smi))
     elapsed("phase 12")
+    paths["registry (phase 13)"] = phase_registry(attn, i8, device)
+    elapsed("phase 13")
+    paths.update(phase_family_fixtures(attn, i8, device))
+    elapsed("phase 14")
+    paths.update(phase_families_full_width(attn, i8, device, smi))
+    elapsed("phase 15")
     print(json.dumps({"kernels": [{
         "name": "relpos_attention",
         "route": "cuda",
@@ -1636,6 +2138,8 @@ def main() -> int:
         "max_abs_err": attn_err,
         **attn_t,
         "launches_by_path": {k: v["relpos_attention"] for k, v in paths.items()},
+        "plain_calls_by_path": {k: v["relpos_attention_plain calls"] for k, v in paths.items()
+                                if v["relpos_attention_plain calls"]},
     }, {
         "name": "int8_matmul_fused",
         "route": "cuda",

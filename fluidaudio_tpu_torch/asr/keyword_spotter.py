@@ -15,8 +15,9 @@ f32 [d, V+1] head). At the default parakeet-ctc-0.6b width (Dh 128) the
 encoder launches the rel-pos attention kernel once per layer and chunk.
 Each chunk's log-probs are copied off the device once; the seam merge and
 the keyword DP run on the host. `checkpoint_dir` holds `encoder.npz` and
-`ctc_head.npz` (key `head`); with neither, the weights are seeded random
-(with a warning): the registry download cache is not ported yet.
+`ctc_head.npz` (key `head`); `checkpoint_dir=None` reads the model cache's
+`Repo.PARAKEET_CTC_0_6B` folder, as JAX does. Where a part is missing its
+weights are seeded random (with a warning).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from fluidaudio_tpu_torch.asr.custom_vocab.ctc_spotter import KeywordSpot, spot_
 from fluidaudio_tpu_torch.models.conformer import ConformerConfig, ConformerEncoder
 from fluidaudio_tpu_torch.models.zoo import disable_tf32, random_init_
 from fluidaudio_tpu_torch.ops.mel import MelConfig, MelFrontend
+from fluidaudio_tpu_torch.registry import DownloadUtils, Repo
 from fluidaudio_tpu_torch.utils.device import resolve_device
 from fluidaudio_tpu_torch.utils.logging import get_logger
 from fluidaudio_tpu_torch.utils.weights import load_npz, load_state
@@ -126,11 +128,12 @@ class CtcKeywordSpotter:
         with torch.no_grad():
             self.ctc.head.copy_(torch.randn(self.ctc.head.shape, generator=gen,
                                             device=self.device) * 0.02)
-        base = Path(checkpoint_dir) if checkpoint_dir else None
+        base = (Path(checkpoint_dir) if checkpoint_dir
+                else DownloadUtils.repo_dir(Repo.PARAKEET_CTC_0_6B))
         loaded = []
         for name, part in (("encoder", self.encoder), ("ctc_head", self.ctc)):
-            f = base / f"{name}.npz" if base is not None else None
-            if f is not None and f.exists():
+            f = base / f"{name}.npz"
+            if f.exists():
                 load_state(part, load_npz(f))
                 loaded.append(name)
         if len(loaded) < 2:

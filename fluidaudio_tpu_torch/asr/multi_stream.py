@@ -15,8 +15,8 @@ steps the full static batch, a tick with no active row included, and the
 decode carries `time_jump` zeroed after every tick. `open_stream` reuses
 freed slots after `close_stream`, resetting that row in place.
 
-`checkpoint_dir=None` means seeded random weights (with a warning): the
-registry download cache is not ported yet.
+`checkpoint_dir=None` reads the model cache's `Repo.PARAKEET_EOU` folder,
+as JAX does (seeded random weights, with a warning, where it holds none).
 """
 
 from __future__ import annotations
@@ -29,7 +29,6 @@ import torch
 from fluidaudio_tpu_torch.asr.multistream import MultiStreamSession, _HostStream
 from fluidaudio_tpu_torch.asr.streaming_eou import (
     EOU_BLANK_ID,
-    EOU_REPO_FOLDER,
     EOU_TOKEN_ID,
     EouSpec,
     _StreamingModels,
@@ -40,6 +39,7 @@ from fluidaudio_tpu_torch.models.conformer_streaming import (
     StreamingConformerEncoder,
 )
 from fluidaudio_tpu_torch.ops.tdt_decode import TdtDecodeConfig
+from fluidaudio_tpu_torch.registry import DownloadUtils, Repo
 from fluidaudio_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("asr.multistream")
@@ -78,8 +78,11 @@ class MultiStreamEouManager(_StreamingModels):
                             eou_id=spec.eou_token_id),
             device,
         )
-        self._load_weights(Path(checkpoint_dir) if checkpoint_dir else None, rng_seed,
-                           f"multi-stream EOU ({EOU_REPO_FOLDER})", spec.eou_token_id)
+        base = (Path(checkpoint_dir) if checkpoint_dir
+                else DownloadUtils.repo_dir(Repo.PARAKEET_EOU))
+        self._load_weights(base, rng_seed,
+                           f"multi-stream EOU ({Repo.PARAKEET_EOU.folder_name})",
+                           spec.eou_token_id)
         self.session: MultiStreamSession = self.make_multi_state(n_streams)
 
     @property

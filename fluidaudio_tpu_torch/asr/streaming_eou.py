@@ -11,9 +11,10 @@ Each chunk runs mel -> encoder step -> RNN-T decode on the device with every
 cache and the decoder state carried as tensors there, and makes ONE
 device->host copy of the chunk's tokens, frame times, count and EOU flag.
 
-`checkpoint_dir=None` means seeded random weights (with a warning): the
-registry download cache is not ported, so pass the folder that holds
-`encoder.npz`, `predictor.npz`, `joint.npz` and `vocab.json`.
+`checkpoint_dir=None` reads the model cache as JAX does
+(`DownloadUtils.repo_dir(Repo.PARAKEET_EOU)`); where that holds no
+`encoder.npz`, `predictor.npz` or `joint.npz` the weights are seeded random
+(with a warning).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from fluidaudio_tpu_torch.ops.tdt_decode import (
     TdtDecodeState,
     make_initial_state,
 )
+from fluidaudio_tpu_torch.registry import DownloadUtils, Repo
 from fluidaudio_tpu_torch.utils.device import resolve_device
 from fluidaudio_tpu_torch.utils.logging import get_logger
 from fluidaudio_tpu_torch.utils.weights import load_npz, load_state
@@ -54,8 +56,6 @@ MEL_HOP = 160
 EOU_TOKEN_ID = 1024
 EOU_BLANK_ID = 1026
 EOU_DEBOUNCE_MS = 1280.0
-# the registry folder of the 120M checkpoint (resolved by a later slice)
-EOU_REPO_FOLDER = "parakeet-eou"
 
 # chunk tiers: ms -> samples consumed per step (mel frames = samples/160)
 CHUNK_TIERS_MS = (160, 320, 1280)
@@ -137,7 +137,7 @@ class _StreamingModels(MultiStreamMixin):
         self.dcfg = dcfg
         self.mel = MelFrontend(MelConfig(center=False, normalize=None), device=self.device)
 
-    def _load_weights(self, base: Path | None, rng_seed: int, name: str,
+    def _load_weights(self, base: Path, rng_seed: int, name: str,
                       placeholder_vocab: int) -> None:
         gen = torch.Generator(device=self.device).manual_seed(rng_seed)
         parts = (("encoder", self.encoder), ("predictor", self.predictor),
@@ -146,15 +146,15 @@ class _StreamingModels(MultiStreamMixin):
             random_init_(part, gen)
         loaded = False
         for part_name, part in parts:
-            f = base / f"{part_name}.npz" if base is not None else None
-            if f is not None and f.exists():
+            f = base / f"{part_name}.npz"
+            if f.exists():
                 load_state(part, load_npz(f))
                 loaded = True
         if not loaded:
             logger.warning("%s: no checkpoints in %s — seeded random init", name, base)
-        vocab_file = base / "vocab.json" if base is not None else None
+        vocab_file = base / "vocab.json"
         self.tokenizer = (
-            Tokenizer.from_json(vocab_file) if vocab_file is not None and vocab_file.exists()
+            Tokenizer.from_json(vocab_file) if vocab_file.exists()
             else Tokenizer(_placeholder_vocab(placeholder_vocab))
         )
 
@@ -235,7 +235,8 @@ class StreamingEouAsrManager(_StreamingManagerBase):
         device: torch.device | str | None = None,
     ):
         """`device=None` is the GPU (RuntimeError without one); pass "cpu"
-        to run on the CPU. `checkpoint_dir=None`: seeded random weights."""
+        to run on the CPU. `checkpoint_dir=None`: the model cache's
+        `Repo.PARAKEET_EOU` folder."""
         if chunk_ms not in CHUNK_TIERS_MS:
             raise ValueError(f"chunk_ms must be one of {CHUNK_TIERS_MS}, got {chunk_ms}")
         self.chunk_ms = chunk_ms
@@ -250,8 +251,10 @@ class StreamingEouAsrManager(_StreamingManagerBase):
                             max_tokens=64, eou_id=spec.eou_token_id),
             device,
         )
-        self._load_weights(Path(checkpoint_dir) if checkpoint_dir else None, rng_seed,
-                           f"EOU ({EOU_REPO_FOLDER})", spec.eou_token_id)
+        base = (Path(checkpoint_dir) if checkpoint_dir
+                else DownloadUtils.repo_dir(Repo.PARAKEET_EOU))
+        self._load_weights(base, rng_seed, f"EOU ({Repo.PARAKEET_EOU.folder_name})",
+                           spec.eou_token_id)
 
     def make_state(self) -> _StreamState:
         return self._make_state()

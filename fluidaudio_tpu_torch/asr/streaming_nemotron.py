@@ -9,9 +9,10 @@ first one is the detected language) and forced-prefix decoding.
 
 Shares the chunk loop of the EOU manager (`streaming_eou`): each chunk runs
 on the device with every cache carried there and makes one device->host
-copy. `checkpoint_dir=None` means seeded random weights (with a warning):
-the registry download cache is not ported; the spec keeps its registry
-folder name as a string.
+copy. `checkpoint_dir=None` reads the model cache's `spec.repo` folder
+(`DownloadUtils.repo_dir`), with its per-tier and per-language subfolders,
+as JAX does; where it holds no checkpoint the weights are seeded random
+(with a warning).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from fluidaudio_tpu_torch.models.conformer_streaming import (
     StreamingConformerEncoder,
 )
 from fluidaudio_tpu_torch.ops.tdt_decode import TdtDecodeConfig
+from fluidaudio_tpu_torch.registry import DownloadUtils, Repo
 
 NEMOTRON_TIERS_MS = (560, 1120, 2240)
 
@@ -120,7 +122,7 @@ class NemotronMultilingualMetadata:
 @dataclass(frozen=True)
 class NemotronSpec:
     name: str
-    repo: str  # registry folder name (resolved by a later slice)
+    repo: Repo
     vocab_size: int  # excludes blank
     d_model: int = 1024
     n_layers: int = 24
@@ -129,20 +131,20 @@ class NemotronSpec:
     joint_hidden: int = 640
 
 
-NEMOTRON_EN = NemotronSpec("nemotron-en", "nemotron-en", vocab_size=1024)
+NEMOTRON_EN = NemotronSpec("nemotron-en", Repo.NEMOTRON_EN, vocab_size=1024)
 NEMOTRON_MULTI_LATIN = NemotronSpec(
-    "nemotron-multilingual-latin", "nemotron-multilingual", vocab_size=2828,
+    "nemotron-multilingual-latin", Repo.NEMOTRON_MULTILINGUAL, vocab_size=2828,
     multilingual=True,
 )
 NEMOTRON_MULTI_FULL = NemotronSpec(
-    "nemotron-multilingual", "nemotron-multilingual", vocab_size=13087,
+    "nemotron-multilingual", Repo.NEMOTRON_MULTILINGUAL, vocab_size=13087,
     multilingual=True,
 )
 #: hermetic trained-fixture spec: two synthetic "languages" (pure-tone
 #: w-words ids 0-15 / harmonic v-words ids 16-31), lang tags <aa-AA>=32
 #: <bb-BB>=33, blank 34; prompts {auto:0, aa:1, bb:2}
 NEMOTRON_TEST = NemotronSpec(
-    "nemotron-test", "nemotron-multilingual", vocab_size=34,
+    "nemotron-test", Repo.NEMOTRON_MULTILINGUAL, vocab_size=34,
     d_model=64, n_layers=2, multilingual=True,
     pred_hidden=64, joint_hidden=64,
 )
@@ -197,7 +199,8 @@ class StreamingNemotronAsrManager(_StreamingManagerBase):
         device: torch.device | str | None = None,
     ):
         """`device=None` is the GPU (RuntimeError without one); pass "cpu"
-        to run on the CPU. `checkpoint_dir=None`: seeded random weights."""
+        to run on the CPU. `checkpoint_dir=None`: the model cache's
+        `spec.repo` folder."""
         if chunk_ms not in NEMOTRON_TIERS_MS:
             raise ValueError(f"chunk_ms must be one of {NEMOTRON_TIERS_MS}, got {chunk_ms}")
         self.spec = spec
@@ -219,7 +222,7 @@ class StreamingNemotronAsrManager(_StreamingManagerBase):
                             max_tokens=256),
             device,
         )
-        self._load_weights(self._ckpt_base, rng_seed, f"{spec.name} ({spec.repo})",
+        self._load_weights(self._ckpt_base, rng_seed, f"{spec.name} ({spec.repo.folder_name})",
                            spec.vocab_size)
         self.prompt_id = (
             self.metadata.prompt_id(None if language == "auto" else language)
@@ -227,12 +230,10 @@ class StreamingNemotronAsrManager(_StreamingManagerBase):
         )
         self.detected_language: str | None = None
 
-    def _resolve_base(self, checkpoint_dir) -> Path | None:
+    def _resolve_base(self, checkpoint_dir) -> Path:
         """Per-tier (and per-language for multilingual) asset subfolders of
-        `checkpoint_dir`; None without one."""
-        if not checkpoint_dir:
-            return None
-        root = Path(checkpoint_dir)
+        `checkpoint_dir`, or of the model cache's `spec.repo` folder."""
+        root = Path(checkpoint_dir) if checkpoint_dir else DownloadUtils.repo_dir(self.spec.repo)
         candidates = [root / f"{self.chunk_ms}ms", root]
         if self.spec.multilingual and self.language not in ("auto", ""):
             lang_key = self.language.replace("_", "-").split("-")[0].lower()
@@ -242,10 +243,10 @@ class StreamingNemotronAsrManager(_StreamingManagerBase):
             (c for c in candidates if (c / "encoder.npz").exists()), candidates[-1]
         )
 
-    def _load_metadata(self, base: Path | None) -> NemotronMultilingualMetadata:
+    def _load_metadata(self, base: Path) -> NemotronMultilingualMetadata:
         if not self.spec.multilingual:
             return NemotronMultilingualMetadata(num_prompts=0, default_prompt_id=0)
-        if base is not None and (base / "metadata.json").exists():
+        if (base / "metadata.json").exists():
             return NemotronMultilingualMetadata.load(base / "metadata.json")
         # no metadata asset: fall back to the built-in locale table
         return NemotronMultilingualMetadata(

@@ -2,10 +2,12 @@
 
 Port of the Parakeet TDT part of `fluidaudio_tpu/models/zoo.py`. `load`
 reads the JAX package's npz checkpoints (`encoder.npz`, `predictor.npz`,
-`joint.npz`, `vocab.json`) from `checkpoint_dir`; with no checkpoint it
-falls back to seeded random init (explicit opt-in), so benchmarks and
-hermetic runs need no assets. The registry download cache is not ported:
-pass `checkpoint_dir`.
+`joint.npz`, `vocab.json`) from `checkpoint_dir`, or with
+`checkpoint_dir=None` from the model cache as JAX does: the version's
+registry folder (`DownloadUtils.repo_dir(spec.repo)`), validated and repaired
+through `registry.doctor.ensure_repo` when `allow_random_init=False`. With no
+checkpoint it falls back to seeded random init (explicit opt-in), so
+benchmarks and hermetic runs need no assets.
 
 `load` runs on the GPU unless given `device="cpu"`. `quantization="int8"`
 builds the f32 encoder first (random init and/or npz), quantises its linear
@@ -27,6 +29,8 @@ from fluidaudio_tpu_torch.models.conformer import ConformerConfig, ConformerEnco
 from fluidaudio_tpu_torch.models.predictor import PredictorConfig, RnntJoint, RnntPredictor
 from fluidaudio_tpu_torch.ops.mel import MelConfig, MelFrontend
 from fluidaudio_tpu_torch.ops.quant import quantize_linear_state
+from fluidaudio_tpu_torch.registry import DownloadUtils, Repo
+from fluidaudio_tpu_torch.registry.doctor import ensure_repo
 from fluidaudio_tpu_torch.utils.device import resolve_device
 from fluidaudio_tpu_torch.utils.logging import get_logger
 from fluidaudio_tpu_torch.utils.weights import load_npz, load_state
@@ -39,6 +43,7 @@ class AsrVersionSpec:
     """Per-version model hyperparameters."""
 
     name: str
+    repo: Repo
     conformer: ConformerConfig
     predictor: PredictorConfig
     mel: MelConfig
@@ -47,18 +52,21 @@ class AsrVersionSpec:
 ASR_VERSIONS: dict[str, AsrVersionSpec] = {
     "v3": AsrVersionSpec(
         name="v3",
+        repo=Repo.PARAKEET_V3,
         conformer=ConformerConfig(d_model=1024, n_layers=24, n_heads=8),
         predictor=PredictorConfig(vocab_size=8192, n_layers=1, enc_hidden=1024),
         mel=MelConfig(normalize="per_feature"),
     ),
     "v2": AsrVersionSpec(
         name="v2",
+        repo=Repo.PARAKEET_V2,
         conformer=ConformerConfig(d_model=1024, n_layers=24, n_heads=8),
         predictor=PredictorConfig(vocab_size=1024, n_layers=2, enc_hidden=1024),
         mel=MelConfig(normalize="per_feature"),
     ),
     "tdt-ctc-110m": AsrVersionSpec(
         name="tdt-ctc-110m",
+        repo=Repo.PARAKEET_TDT_CTC_110M,
         conformer=ConformerConfig(d_model=512, n_layers=17, n_heads=8),
         predictor=PredictorConfig(vocab_size=1024, n_layers=1, enc_hidden=512,
                                   pred_hidden=640, joint_hidden=640),
@@ -66,6 +74,7 @@ ASR_VERSIONS: dict[str, AsrVersionSpec] = {
     ),
     "tdt-ja": AsrVersionSpec(
         name="tdt-ja",
+        repo=Repo.PARAKEET_JA,
         conformer=ConformerConfig(d_model=1024, n_layers=24, n_heads=8),
         predictor=PredictorConfig(vocab_size=3072, n_layers=1, enc_hidden=1024),
         mel=MelConfig(normalize="per_feature"),
@@ -73,6 +82,7 @@ ASR_VERSIONS: dict[str, AsrVersionSpec] = {
     # tiny fixture for hermetic tests (trained npz in fluidaudio_tpu/assets)
     "test-tiny": AsrVersionSpec(
         name="test-tiny",
+        repo=Repo.PARAKEET_V3,
         conformer=ConformerConfig(d_model=64, n_layers=2, n_heads=4,
                                   subsampling_channels=32, dtype="float32"),
         predictor=PredictorConfig(vocab_size=64, n_layers=1, enc_hidden=64,
@@ -92,10 +102,11 @@ def disable_tf32() -> None:
 @torch.no_grad()
 def random_init_(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded init in place: LeCun-normal weights (flax's Dense/Conv default),
-    zero biases, unit norms, N(0, 0.02) embeddings and prompt tables."""
+    zero biases, unit norms, N(0, 0.02) embeddings and free tables (the
+    Nemotron `prompt_embed`, the SenseVoice `embed`, the Cohere `pos_embed`)."""
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("embedding", "prompt_embed"):
+        if leaf in ("embedding", "prompt_embed", "embed", "pos_embed"):
             p.copy_(torch.randn(p.shape, generator=generator, device=p.device) * 0.02)
         elif leaf == "weight" and p.ndim >= 2:
             fan_in = p[0].numel()
@@ -156,15 +167,21 @@ class AsrModels:
         for part in (encoder, predictor, joint):
             random_init_(part, gen)
 
+        if checkpoint_dir:
+            ckpt_dir = Path(checkpoint_dir)
+        elif allow_random_init:
+            ckpt_dir = DownloadUtils.repo_dir(spec.repo)
+        else:
+            # weights required: validate and repair the cache first (the
+            # reference's loadWithAutoRecovery; OfflineError when offline)
+            ckpt_dir = ensure_repo(spec.repo)
         loaded_any = False
-        ckpt_dir = Path(checkpoint_dir) if checkpoint_dir else None
-        if ckpt_dir is not None:
-            for name, part in (("encoder", encoder), ("predictor", predictor),
-                               ("joint", joint)):
-                f = ckpt_dir / f"{name}.npz"
-                if f.exists():
-                    load_state(part, load_npz(f))
-                    loaded_any = True
+        for name, part in (("encoder", encoder), ("predictor", predictor),
+                           ("joint", joint)):
+            f = ckpt_dir / f"{name}.npz"
+            if f.exists():
+                load_state(part, load_npz(f))
+                loaded_any = True
         if not loaded_any:
             if not allow_random_init:
                 raise FileNotFoundError(
@@ -177,8 +194,8 @@ class AsrModels:
             encoder = ConformerEncoder(spec.conformer, device=device).eval()
             load_state(encoder, state)
 
-        vocab_file = ckpt_dir / "vocab.json" if ckpt_dir is not None else None
-        if vocab_file is not None and vocab_file.exists():
+        vocab_file = ckpt_dir / "vocab.json"
+        if vocab_file.exists():
             tokenizer = Tokenizer.from_json(vocab_file)
         else:
             tokenizer = Tokenizer(_placeholder_vocab(spec.predictor.vocab_size))
@@ -192,3 +209,21 @@ def _placeholder_vocab(vocab_size: int) -> dict[int, str]:
         piece = f"tok{i}"
         vocab[i] = ("▁" + piece) if i % 3 != 2 else piece
     return vocab
+
+
+def load_or_init(module: torch.nn.Module, ckpt: Path, rng_seed: int, device: torch.device,
+                 label: str) -> bool:
+    """Seeded random init on `device`, then the npz at `ckpt` if it exists
+    (warning when it does not). -> whether the checkpoint was loaded."""
+    random_init_(module, torch.Generator(device=device).manual_seed(rng_seed))
+    if ckpt.exists():
+        load_state(module, load_npz(ckpt))
+        return True
+    logger.warning("%s: no checkpoint at %s — seeded random init", label, ckpt)
+    return False
+
+
+def family_tokenizer(base: Path, vocab_size: int) -> Tokenizer:
+    vocab_file = base / "vocab.json"
+    return (Tokenizer.from_json(vocab_file) if vocab_file.exists()
+            else Tokenizer(_placeholder_vocab(vocab_size)))

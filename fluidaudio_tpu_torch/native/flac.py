@@ -98,6 +98,16 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+def native_available() -> bool:
+    """True when the decoder builds and loads (the JAX package's
+    `native_available`, over this module's own build)."""
+    try:
+        load_library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def decode_flac(data: bytes) -> tuple[np.ndarray, int]:
     """Decode an in-memory FLAC stream -> (int16 [n, channels], sample_rate).
 

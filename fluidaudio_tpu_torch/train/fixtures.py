@@ -1,11 +1,13 @@
-"""Trained `ctc` fixture evaluations, on the port's CTC stack.
+"""Trained fixture evaluations on the port: CTC, SenseVoice, Paraformer,
+Cohere and VAD.
 
-Copies of the CTC part of `fluidaudio_tpu/train/fixtures.py` (that module
+Copies of those parts of `fluidaudio_tpu/train/fixtures.py` (that module
 imports JAX): the same seeds, corpora and gates, run through the port's
-`CtcKeywordSpotter`, `ctc_greedy_decode`, `ctc_beam_search` and
-`ctc_token_rescore` on `device` (None: the GPU; pass "cpu" to run on the
-CPU). The fixture itself is the JAX package's committed npz
-(`fluidaudio_tpu/assets/trained_tiny/ctc/`), read as files.
+`CtcKeywordSpotter`, `ctc_greedy_decode`, `ctc_beam_search`,
+`ctc_token_rescore`, `SenseVoiceManager`, `ParaformerManager`,
+`CoherePipeline` and `VadManager` on `device` (None: the GPU; pass "cpu" to
+run on the CPU). The fixtures themselves are the JAX package's committed npz
+(`fluidaudio_tpu/assets/trained_tiny/`), read as files.
 """
 
 from __future__ import annotations
@@ -214,3 +216,104 @@ def eval_vocab_boost_fixture(seed: int = 555, *, device=None) -> dict[str, float
         )),
         "false_boost": float("w0" in out.text.split()),
     }
+
+
+def cohere_tiny_config():
+    """COHERE_TEST widened to a usable audio window (5.12 s) so multi-word
+    utterances fit, and to 32 mel bins — 16 bins over 0-8 kHz cannot separate
+    the two lowest tone words (240 vs 290 Hz land in one bin). Everything
+    else stays test-tiny."""
+    from dataclasses import replace
+
+    from fluidaudio_tpu_torch.models.cohere_asr import COHERE_TEST
+
+    return replace(COHERE_TEST, max_audio_frames=512, max_decode_tokens=16,
+                   n_mels=32)
+
+
+def write_family_vocab(path: Path, offset: int, specials: dict[int, str]) -> None:
+    """id -> piece JSON: 16 tone words at `offset`, named specials, fillers."""
+    import json
+
+    vocab = dict(specials)
+    for i in range(tc.N_WORDS):
+        vocab[offset + i] = "▁" + tc.word_text(i)
+    for i in range(64):
+        vocab.setdefault(i, f"▁unused{i}")
+    path.write_text(json.dumps({str(k): v for k, v in sorted(vocab.items())},
+                               ensure_ascii=False))
+
+
+def _family_wer(mgr, seed: int, n_utts: int, max_words: int) -> float:
+    from fluidaudio_tpu_torch.metrics.wer import wer
+
+    rs = np.random.RandomState(seed)
+    rates = []
+    for _ in range(n_utts):
+        ids = rs.randint(0, tc.N_WORDS, size=int(rs.randint(2, max_words)))
+        audio = tc.make_utterance(ids, rs)
+        rates.append(wer(tc.transcript_text(ids), mgr.transcribe(audio).text).rate)
+    return float(np.mean(rates))
+
+
+def eval_sensevoice_fixture(seed: int = 321, n_utts: int = 6, *, device=None) -> float:
+    """WER through SenseVoiceManager.transcribe (mel -> LFR -> SANM -> CTC
+    greedy, bucketed shapes, tag stripping) on held-out utterances."""
+    from fluidaudio_tpu_torch.asr.sensevoice_manager import SenseVoiceManager
+    from fluidaudio_tpu_torch.models.sensevoice import SENSEVOICE_TEST
+
+    mgr = SenseVoiceManager(SENSEVOICE_TEST, checkpoint_dir=trained_assets_dir() / "sensevoice",
+                            device=device)
+    return _family_wer(mgr, seed, n_utts, 9)
+
+
+def eval_paraformer_fixture(seed: int = 654, n_utts: int = 6, *, device=None) -> float:
+    """WER through ParaformerManager.transcribe (LFR -> SANM -> CIF ->
+    parallel decoder) on held-out utterances."""
+    from fluidaudio_tpu_torch.asr.paraformer_manager import ParaformerManager
+    from fluidaudio_tpu_torch.models.paraformer import PARAFORMER_TEST
+
+    mgr = ParaformerManager(PARAFORMER_TEST, checkpoint_dir=trained_assets_dir() / "paraformer",
+                            device=device)
+    return _family_wer(mgr, seed, n_utts, 9)
+
+
+def eval_cohere_fixture(seed: int = 987, n_utts: int = 6, *, device=None) -> float:
+    """WER through CoherePipeline.transcribe (conformer encoder -> KV-cache
+    AR decode with repetition penalty) on held-out utterances."""
+    from fluidaudio_tpu_torch.asr.cohere_manager import CoherePipeline
+
+    mgr = CoherePipeline(cohere_tiny_config(), checkpoint_dir=trained_assets_dir() / "cohere",
+                         device=device)
+    return _family_wer(mgr, seed, n_utts, 8)
+
+
+def vad_fixture_clips(seed: int = 777, clips: int = 12) -> list[tuple[bool, np.ndarray]]:
+    """The held-out clips of `eval_vad_fixture`: (is speech, samples)."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for i in range(clips):
+        speech = i % 2 == 0
+        if speech:
+            clip = tc.speechish(2.0, rs) if i % 4 == 0 else tc.make_utterance(
+                rs.randint(0, tc.N_WORDS, size=4), rs, noise=0.0)
+        else:
+            clip = (rs.randn(32000) * 0.003).astype(np.float32)
+        out.append((speech, clip))
+    return out
+
+
+def eval_vad_fixture(seed: int = 777, clips: int = 12, *, device=None) -> float:
+    """Clip-level F1 of the trained tiny Silero through VadManager.process
+    on held-out synthetic speech/nonspeech."""
+    from fluidaudio_tpu_torch.vad import VadManager
+
+    mgr = VadManager(checkpoint_dir=trained_assets_dir() / "vad", device=device)
+    tp = fp = fn = 0
+    for speech, clip in vad_fixture_clips(seed, clips):
+        results = mgr.process(clip)
+        pred = bool(np.mean([r.probability for r in results]) >= 0.5)
+        tp += pred and speech
+        fp += pred and not speech
+        fn += (not pred) and speech
+    return 2 * tp / max(2 * tp + fp + fn, 1)

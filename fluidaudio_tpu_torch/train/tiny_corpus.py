@@ -10,7 +10,8 @@ The language has 16 words. Word `i` is a 0.30 s pure tone at
 0.12 s silences. Token `i` is the SentencePiece-style piece `▁w{i}`, so a
 decode reads "w3 w7 w1 ...". The multilingual Nemotron fixture adds a second
 language, "b": word `i` is a fundamental at `200 * 1.17**i` Hz plus a strong
-2.3x partial, read "v{i}".
+2.3x partial, read "v{i}". The VAD fixture's speech is `speechish`,
+AM-modulated noise.
 """
 
 from __future__ import annotations
@@ -101,3 +102,16 @@ def make_utterance(
 
 def transcript_text(word_ids) -> str:
     return " ".join(word_text(int(w)) for w in word_ids)
+
+
+# --------------------------------------------------------------------- VAD
+
+
+def speechish(seconds: float, rs: np.random.RandomState) -> np.ndarray:
+    """AM-modulated noise with syllabic (3 Hz) + phrasal (0.31 Hz) structure —
+    the same character as the guardrail battery's synthetic speech."""
+    t = np.arange(int(seconds * SR)) / SR
+    env = 0.5 * (1 + np.sin(2 * np.pi * 3.0 * t)) * (
+        0.3 + 0.7 * (np.sin(2 * np.pi * 0.31 * t) > 0)
+    )
+    return (rs.randn(t.size) * 0.1 * (0.05 + env)).astype(np.float32)

@@ -6,14 +6,18 @@ The npz files hold a flax parameter tree flattened to '/'-joined keys
 and maps each to a torch `state_dict` key and layout:
 
 - flax Dense `kernel [in, out]`            -> `weight [out, in]`
-- flax Conv1d `kernel [k, in/g, out]`       -> `weight [out, in/g, k]`
+- flax Conv1d `kernel [k, in/g, out]`       -> `weight [out, in/g, k]` (the
+  depthwise FSMN `[K, 1, D]` -> `[D, 1, K]`, Silero's STFT basis
+  `[256, 1, 258]` -> `[258, 1, 256]`)
 - flax Conv2d `kernel [kh, kw, in/g, out]`  -> `weight [out, in/g, kh, kw]`
 - flax LayerNorm `scale`                    -> `weight`
 - JAX `Int8Dense` `kernel_q [in, out]` int8 -> `weight_q [out, in]` int8
   (K contiguous, the layout the int8 kernel reads), `kernel_scale [1, out]`
   f32 -> `weight_scale [out]`
 - everything else (`bias`, `bn_scale`/`bn_bias`, `pos_bias_u`/`pos_bias_v`,
-  `embedding`, the Nemotron `prompt_embed` table) keeps its name and layout.
+  `embedding`, the free tables: Nemotron's `prompt_embed`, SenseVoice's
+  `embed`, Cohere's `pos_embed`) keeps its name and layout. Cohere's output
+  head is its `embed.embedding`, tied, so it has no key of its own.
 
 The leading `params` collection is dropped and '/' becomes '.', so
 `params/block0/mhsa/q/kernel` lands on `block0.mhsa.q.weight`.

@@ -462,3 +462,112 @@ def test_keyword_spotter_two_chunks_on_the_card_matches_cpu(cuda):
     for c, w in zip(card_spots, cpu_spots):
         assert (c.keyword, c.start_frame, c.end_frame) == (w.keyword, w.start_frame, w.end_frame)
         assert c.score == pytest.approx(w.score, abs=1e-4)
+
+
+TRAINED = TRAINED_ASR.parent
+
+
+def _family_texts(make, seed, max_words, device):
+    from fluidaudio_tpu_torch.train import tiny_corpus as tc
+
+    mgr = make(device)
+    rs = np.random.RandomState(seed)
+    texts = []
+    for _ in range(4):
+        ids = rs.randint(0, tc.N_WORDS, size=int(rs.randint(2, max_words)))
+        texts.append(mgr.transcribe(tc.make_utterance(ids, rs)).text)
+    return texts
+
+
+@pytest.mark.parametrize("family", ["sensevoice", "paraformer", "cohere"])
+def test_family_fixture_on_the_card_matches_cpu(cuda, family):
+    """The trained SenseVoice, Paraformer and Cohere fixtures: the same texts
+    on the card as on the CPU, and no kernel launched (Cohere's Dh-8 encoder
+    takes the plain attention, one call per layer and window)."""
+    from fluidaudio_tpu_torch.asr.cohere_manager import CoherePipeline
+    from fluidaudio_tpu_torch.asr.paraformer_manager import ParaformerManager
+    from fluidaudio_tpu_torch.asr.sensevoice_manager import SenseVoiceManager
+    from fluidaudio_tpu_torch.models.paraformer import PARAFORMER_TEST
+    from fluidaudio_tpu_torch.models.sensevoice import SENSEVOICE_TEST
+    from fluidaudio_tpu_torch.train.fixtures import cohere_tiny_config
+
+    make, seed, words = {
+        "sensevoice": (lambda d: SenseVoiceManager(
+            SENSEVOICE_TEST, checkpoint_dir=TRAINED / "sensevoice", device=d), 321, 9),
+        "paraformer": (lambda d: ParaformerManager(
+            PARAFORMER_TEST, checkpoint_dir=TRAINED / "paraformer", device=d), 654, 9),
+        "cohere": (lambda d: CoherePipeline(
+            cohere_tiny_config(), checkpoint_dir=TRAINED / "cohere", device=d), 987, 8),
+    }[family]
+    before = attn.relpos_attention.launches
+    plain = attn.relpos_attention_plain.calls
+    got = _family_texts(make, seed, words, cuda)
+    torch.cuda.synchronize()
+    assert attn.relpos_attention.launches == before
+    assert (attn.relpos_attention_plain.calls - plain == 2 * 4) == (family == "cohere")
+    assert got == _family_texts(make, seed, words, "cpu") and all(got)
+
+
+def test_vad_fixture_on_the_card_matches_cpu(cuda):
+    """The trained Silero: chunk probabilities within 1e-5 of the CPU's
+    through `process_batch` (a CUDA graph per shape) and `process_chunk`,
+    and the same final state."""
+    from fluidaudio_tpu_torch.train.fixtures import vad_fixture_clips
+    from fluidaudio_tpu_torch.vad import VadManager
+
+    clips = [c for _, c in vad_fixture_clips()]
+    card = VadManager(checkpoint_dir=TRAINED / "vad", device=cuda)
+    cpu = VadManager(checkpoint_dir=TRAINED / "vad", device="cpu")
+    for _ in range(2):  # the second call replays the captured graphs
+        for got, want in zip(card.process_batch(clips), cpu.process_batch(clips)):
+            np.testing.assert_allclose([r.probability for r in got],
+                                       [r.probability for r in want], atol=1e-5)
+            np.testing.assert_allclose(got[-1].output_state.hidden_state,
+                                       want[-1].output_state.hidden_state, atol=1e-5)
+    a, b = card.process_chunk(clips[0][:4096]), cpu.process_chunk(clips[0][:4096])
+    assert abs(a.probability - b.probability) <= 1e-5
+
+
+def test_vad_graphs_share_one_pool_and_stay_bounded(cuda):
+    """More (batch, bucket) shapes than the program cache holds: every
+    graph is captured in the manager's one pool after a warm-up on its one
+    side stream, at most
+    `PROGRAM_CACHE_SIZE` are kept, and every shape, an evicted one run
+    again included, matches the CPU within 1e-5."""
+    from fluidaudio_tpu_torch.train.fixtures import vad_fixture_clips
+    from fluidaudio_tpu_torch.vad import VadManager
+    from fluidaudio_tpu_torch.vad.manager import PROGRAM_CACHE_SIZE
+
+    clips = [c for _, c in vad_fixture_clips()]
+    card = VadManager(checkpoint_dir=TRAINED / "vad", device=cuda)
+    cpu = VadManager(checkpoint_dir=TRAINED / "vad", device="cpu")
+    shapes = [clips[: b % len(clips) + 1] for b in range(PROGRAM_CACHE_SIZE + 2)]
+    shapes = [[c[: 4096 << (b % 3)] for c in rows] for b, rows in enumerate(shapes)]
+    for rows in shapes + shapes[:1]:
+        for got, want in zip(card.process_batch(rows), cpu.process_batch(rows)):
+            np.testing.assert_allclose([r.probability for r in got],
+                                       [r.probability for r in want], atol=1e-5)
+    programs = list(card._program_cache.values())
+    assert len(programs) <= PROGRAM_CACHE_SIZE
+    assert all(p.pool is card._graph_pool and p.stream is card._warmup_stream
+               and p.graph is not None for p in programs)
+
+
+def test_cohere_decode_on_the_card_syncs_once_per_8_steps(cuda):
+    """Random COHERE_TEST weights: the card's greedy decode equals the CPU's
+    token for token, and reads its stopping rule at most once per 8 steps."""
+    from fluidaudio_tpu_torch.models import cohere_asr as co
+    from fluidaudio_tpu_torch.models.zoo import random_init_
+
+    cfg = co.COHERE_TEST
+    card = co.CohereDecoderStep(cfg, device=cuda).eval()
+    random_init_(card, torch.Generator(device=cuda).manual_seed(0))
+    cpu = co.CohereDecoderStep(cfg).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    enc = torch.randn(2, 9, cfg.enc_hidden, generator=torch.Generator().manual_seed(1))
+    mask = torch.arange(9)[None, :] < torch.tensor([[9], [4]])
+    out = [co.cohere_greedy_decode(cfg, dec, enc.to(dev), mask.to(dev))
+           for dec, dev in ((card, cuda), (cpu, "cpu"))]
+    assert torch.equal(out[0].tokens.cpu(), out[1].tokens)
+    assert torch.equal(out[0].counts.cpu(), out[1].counts)
+    assert out[0].host_syncs <= out[0].steps // 8 + 1

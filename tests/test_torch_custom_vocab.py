@@ -31,37 +31,81 @@ from fluidaudio_tpu_torch.asr.custom_vocab import rescorer as port_rescorer
 from fluidaudio_tpu_torch.asr.tokenizer import Tokenizer as PortTokenizer
 
 
-def jax_cases(test_file: str, modules=("",), select=None) -> list:
-    """The test functions and test-class methods of the JAX package's test
-    module `tests/<test_file>`, loaded with the imports of `modules`
-    (dotted names under `fluidaudio_tpu`; "" means every one) pointed at
-    the port's. Only cases that take no fixture are kept, and with
-    `select` only those whose qualified name starts with one of its
-    prefixes. -> pytest.param(callable, id=qualified name) per case."""
-    path = Path(__file__).with_name(test_file)
-    src = path.read_text()
-    for name in modules:
-        pattern = r"\bfluidaudio_tpu\." + (re.escape(name) + r"\b" if name else "")
-        src = re.sub(pattern, "fluidaudio_tpu_torch." + name, src)
-    mod = types.ModuleType(f"ported_{path.stem}")
-    mod.__file__ = str(path)
-    exec(compile(src, str(path), "exec"), mod.__dict__)
+_MODULES: dict = {}
 
+
+def jax_module(test_file: str, modules=("",), overrides=None, edits=()) -> types.ModuleType:
+    """The JAX package's test module `tests/<test_file>`, its source loaded
+    with the imports of `modules` (dotted names under `fluidaudio_tpu`; ""
+    means every one) pointed at the port's and each (old, new) of `edits`
+    replaced (each must occur: e.g. `device="cpu"` added to a constructor
+    call), then the names of `overrides` set in its namespace. Loaded once
+    per arguments."""
+    key = (test_file, tuple(modules), tuple((k, id(v)) for k, v in (overrides or {}).items()),
+           tuple(edits))
+    if key not in _MODULES:
+        path = Path(__file__).with_name(test_file)
+        src = path.read_text()
+        for old, new in edits:
+            assert old in src, (test_file, old)
+            src = src.replace(old, new)
+        for name in modules:
+            pattern = r"\bfluidaudio_tpu\." + (re.escape(name) + r"\b" if name else "")
+            src = re.sub(pattern, "fluidaudio_tpu_torch." + name, src)
+        mod = types.ModuleType(f"ported_{path.stem}")
+        mod.__file__ = str(path)
+        exec(compile(src, str(path), "exec"), mod.__dict__)
+        mod.__dict__.update(overrides or {})
+        _MODULES[key] = mod
+    return _MODULES[key]
+
+
+def jax_fixtures(test_file: str, modules=("",), overrides=None, edits=()) -> dict:
+    """The pytest fixtures the loaded module defines, by name: set them in a
+    port test module's globals so that its `jax_cases` can request them
+    (autouse ones then apply to every test of that module)."""
+    mod = jax_module(test_file, modules, overrides, edits)
+    return {name: obj for name, obj in vars(mod).items()
+            if type(obj).__name__ == "FixtureFunctionDefinition"}
+
+
+class _Case:
+    """One JAX test case on the port; fixture arguments come from `request`."""
+
+    def __init__(self, fn, fixtures, cls=None):
+        self.fn, self.fixtures, self.cls = fn, fixtures, cls
+
+    def __call__(self, request=None):
+        kwargs = {name: request.getfixturevalue(name) for name in self.fixtures}
+        if self.cls is not None:
+            return getattr(self.cls(), self.fn.__name__)(**kwargs)
+        return self.fn(**kwargs)
+
+
+def jax_cases(test_file: str, modules=("",), select=None, *, overrides=None, edits=(),
+              fixtures=False) -> list:
+    """The test functions and test-class methods of the JAX package's test
+    module `tests/<test_file>` (loaded by `jax_module`), with `select` only
+    those whose qualified name starts with one of its prefixes.
+    -> pytest.param(case, id=qualified name) per case; `case(request)` runs
+    it. Cases that take fixtures are kept only with `fixtures=True`: they
+    request them through `request` (built-in ones, and the module's own
+    once `jax_fixtures` are set in the caller's globals)."""
+    mod = jax_module(test_file, modules, overrides, edits)
     cases = []
     for name, obj in vars(mod).items():
         if name.startswith("test_") and inspect.isfunction(obj):
-            members = [(name, obj, obj)]
+            members = [(name, obj, None)]
         elif name.startswith("Test") and inspect.isclass(obj):
-            members = [(f"{name}.{m}", fn, lambda cls=obj, m=m: getattr(cls(), m)())
-                       for m, fn in vars(obj).items()
+            members = [(f"{name}.{m}", fn, obj) for m, fn in vars(obj).items()
                        if m.startswith("test_") and inspect.isfunction(fn)]
         else:
             continue
-        for qualname, fn, run in members:
-            takes_fixtures = [p for p in inspect.signature(fn).parameters if p != "self"]
-            if takes_fixtures or (select and not qualname.startswith(tuple(select))):
+        for qualname, fn, cls in members:
+            needs = [p for p in inspect.signature(fn).parameters if p != "self"]
+            if (needs and not fixtures) or (select and not qualname.startswith(tuple(select))):
                 continue
-            cases.append(pytest.param(run, id=qualname))
+            cases.append(pytest.param(_Case(fn, needs, cls), id=qualname))
     return cases
 
 

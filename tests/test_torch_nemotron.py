@@ -24,6 +24,7 @@ from fluidaudio_tpu.train import fixtures as fx
 from fluidaudio_tpu_torch.asr import streaming_nemotron as port_nem
 from fluidaudio_tpu_torch.metrics.wer import wer
 from fluidaudio_tpu_torch.models.conformer_streaming import StreamingConformerConfig
+from fluidaudio_tpu_torch.registry import Repo
 from fluidaudio_tpu_torch.train import tiny_corpus as tc
 
 CKPT = fx.trained_assets_dir() / "nemotron"
@@ -145,7 +146,7 @@ def test_lang_tags_filtered_on_random_weights(tmp_path):
 
 
 def test_tier_chunking_english_spec():
-    tiny_en = port_nem.NemotronSpec("tiny-en", "nemotron-en", vocab_size=32, d_model=64,
+    tiny_en = port_nem.NemotronSpec("tiny-en", Repo.NEMOTRON_EN, vocab_size=32, d_model=64,
                                     n_layers=2)
     mgr = port_nem.StreamingNemotronAsrManager(
         tiny_en, chunk_ms=560, enc_cfg=StreamingConformerConfig(
@@ -170,7 +171,7 @@ def test_specs_and_locales_match_jax():
         assert (p.name, p.vocab_size, p.d_model, p.n_layers, p.multilingual, p.pred_hidden,
                 p.joint_hidden) == (j.name, j.vocab_size, j.d_model, j.n_layers,
                                     j.multilingual, j.pred_hidden, j.joint_hidden)
-        assert p.repo == j.repo.value.folder_name
+        assert p.repo.name == j.repo.name and p.repo.folder_name == j.repo.folder_name
     assert port_nem.NEMOTRON_LOCALES == jax_nem.NEMOTRON_LOCALES
 
 
@@ -181,9 +182,9 @@ def test_fleurs_codes_match_jax(code):
         jax_nem.fleurs_to_multilingual_language(code)
 
 
-def test_asset_folder_search(tmp_path):
+def test_asset_folder_search(tmp_path, monkeypatch):
     """Per-tier, then per-language subfolders; the root when none holds an
-    encoder; no folder at all means random weights."""
+    encoder; no folder means the model cache's `spec.repo` folder, as in JAX."""
     for sub in ("560ms", "bb/560ms", "bb"):
         (tmp_path / sub).mkdir(parents=True, exist_ok=True)
     (tmp_path / "560ms" / "encoder.npz").write_bytes(b"")
@@ -198,7 +199,8 @@ def test_asset_folder_search(tmp_path):
     assert mgr._resolve_base(tmp_path) == tmp_path / "bb" / "560ms"
     mgr.chunk_ms = 1120
     assert mgr._resolve_base(tmp_path) == tmp_path / "bb"
-    assert mgr._resolve_base(None) is None
+    monkeypatch.setenv("FLUID_CACHE_DIR", str(tmp_path / "cache"))
+    assert mgr._resolve_base(None) == tmp_path / "cache" / "Models" / "nemotron-multilingual"
 
 
 def test_no_metadata_falls_back_to_the_locale_table(tmp_path):

@@ -32,6 +32,14 @@ PORTED = [
     ("fluidaudio_tpu_torch.asr.custom_vocab.context", "CustomVocabularyContext"),
     ("fluidaudio_tpu_torch.asr.custom_vocab.rescorer", "VocabularyRescorer"),
     ("fluidaudio_tpu_torch.asr.punctuation_commit", "PunctuationCommitLayer"),
+    ("fluidaudio_tpu_torch.asr.sensevoice_manager", "SenseVoiceManager"),
+    ("fluidaudio_tpu_torch.asr.paraformer_manager", "ParaformerManager"),
+    ("fluidaudio_tpu_torch.asr.cohere_manager", "CoherePipeline"),
+    ("fluidaudio_tpu_torch.vad.manager", "VadManager"),
+    ("fluidaudio_tpu_torch.vad.types", "VadConfig"),
+    ("fluidaudio_tpu_torch.vad.types", "VadSegmentationConfig"),
+    ("fluidaudio_tpu_torch.registry", "ModelRegistry"),
+    ("fluidaudio_tpu_torch.registry", "DownloadUtils"),
     ("fluidaudio_tpu_torch.registry", "Repo"),
     ("fluidaudio_tpu_torch.utils.converter", "AudioConverter"),
     ("fluidaudio_tpu_torch.utils.audio_stream", "AudioStream"),
@@ -58,8 +66,8 @@ NOT_PORTED = {
     "metrics": {"normalize_for_scoring", "parse_rttm", "write_rttm", "build_kaldi_split",
                 "load_ami_ground_truth", "load_frame_aligned_der_reference",
                 "load_kaldi_der_reference", "load_word_aligned_ground_truth"},
-    "registry": {"check_repo", "ensure_repo", "readiness_report", "repair_repo",
-                 "ModelRegistry", "OfflineError", "RegistryError", "DownloadUtils"},
+    "registry": set(),
+    "vad": set(),
     "asr.custom_vocab": set(),
 }
 

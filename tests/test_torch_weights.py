@@ -1,8 +1,8 @@
 """npz weight loading of the PyTorch port, and its independence from JAX.
 
-Every key of the trained `test-tiny` checkpoints and of the streaming `eou`
-and `nemotron` fixtures (encoder, predictor, joint) is consumed by the port's
-modules, each lands in the torch layout, and a missing, extra or mis-shaped
+Every key of the trained `test-tiny` checkpoints, of the streaming `eou`
+and `nemotron` fixtures (encoder, predictor, joint) and of the `sensevoice`,
+`paraformer`, `cohere` and `vad` fixtures is consumed by the port's modules, each lands in the torch layout, and a missing, extra or mis-shaped
 key raises. The port's package must import no JAX.
 """
 
@@ -16,9 +16,14 @@ import pytest
 from fluidaudio_tpu.train.fixtures import trained_assets_dir
 from fluidaudio_tpu_torch.asr.streaming_eou import EOU_TEST
 from fluidaudio_tpu_torch.asr.streaming_nemotron import _PromptedEncoder
+from fluidaudio_tpu_torch.models.cohere_asr import CohereDecoderStep, CohereEncoder
 from fluidaudio_tpu_torch.models.conformer import ConformerEncoder
 from fluidaudio_tpu_torch.models.conformer_streaming import StreamingConformerEncoder
+from fluidaudio_tpu_torch.models.paraformer import PARAFORMER_TEST, Paraformer
 from fluidaudio_tpu_torch.models.predictor import PredictorConfig, RnntJoint, RnntPredictor
+from fluidaudio_tpu_torch.models.sensevoice import SENSEVOICE_TEST, SenseVoiceEncoder
+from fluidaudio_tpu_torch.models.silero_vad import SileroVadV5
+from fluidaudio_tpu_torch.train.fixtures import cohere_tiny_config
 from fluidaudio_tpu_torch.models.zoo import ASR_VERSIONS
 from fluidaudio_tpu_torch.utils import weights
 
@@ -42,7 +47,18 @@ STREAMING_PARTS = {
     "nemotron/predictor": lambda: RnntPredictor(_NEM_PRED),
     "nemotron/joint": lambda: RnntJoint(_NEM_PRED),
 }
-ALL_PARTS = {**PARTS, **STREAMING_PARTS}  # test-tiny parts are under asr/
+# the SenseVoice, Paraformer, Cohere and Silero fixtures: flax depthwise
+# [K, 1, D] and plain [K, in, out] conv kernels (the 258-filter STFT basis
+# [256, 1, 258] among them), the free `embed` and `pos_embed` tables, and
+# Cohere's tied `embed.embedding`
+FAMILY_PARTS = {
+    "sensevoice/encoder": lambda: SenseVoiceEncoder(SENSEVOICE_TEST),
+    "paraformer/model": lambda: Paraformer(PARAFORMER_TEST),
+    "cohere/encoder": lambda: CohereEncoder(cohere_tiny_config()),
+    "cohere/decoder": lambda: CohereDecoderStep(cohere_tiny_config()),
+    "vad/silero_vad": lambda: SileroVadV5(),
+}
+ALL_PARTS = {**PARTS, **STREAMING_PARTS, **FAMILY_PARTS}  # test-tiny parts are under asr/
 
 
 @pytest.mark.parametrize("part", sorted(ALL_PARTS))
@@ -124,7 +140,13 @@ def test_importing_the_port_leaves_no_jax_in_sys_modules():
     code = ("import importlib, pkgutil, sys, fluidaudio_tpu_torch as p;"
             "[importlib.import_module(m.name) for m in "
             "pkgutil.walk_packages(p.__path__, 'fluidaudio_tpu_torch.')];"
-            "assert 'fluidaudio_tpu_torch.asr.keyword_spotter' in sys.modules;"
+            "assert all(m in sys.modules for m in ("
+            "'fluidaudio_tpu_torch.asr.keyword_spotter',"
+            "'fluidaudio_tpu_torch.registry.doctor', 'fluidaudio_tpu_torch.registry.datasets',"
+            "'fluidaudio_tpu_torch.asr.sensevoice_manager',"
+            "'fluidaudio_tpu_torch.asr.paraformer_manager',"
+            "'fluidaudio_tpu_torch.asr.cohere_manager', 'fluidaudio_tpu_torch.vad.manager',"
+            "'fluidaudio_tpu_torch.vad.segmentation', 'fluidaudio_tpu_torch.models.silero_vad'));"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'jaxlib', 'fluidaudio_tpu')]; print(bad); sys.exit(bool(bad))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=PORT_DIR.parent,
