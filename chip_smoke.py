@@ -10,9 +10,10 @@ line is not printed:
 
   1. device: the card's name and power limit (nvidia-smi), the time to
      build both kernels from `fluidaudio_tpu_torch/csrc/` (one nvcc each, in
-     parallel) and the FLAC decoder from `native/flac/flac.cpp` (the host
-     C++ compiler, beside them), and what ptxas reports of the attention
-     kernel and the int8 GEMM (registers, spills, shared memory);
+     parallel) and the FLAC decoder and the fastcluster library from
+     `native/{flac,fastcluster}/` (the host C++ compiler, beside them), and
+     what ptxas reports of the attention kernel and the int8 GEMM
+     (registers, spills, shared memory);
   2. the rel-pos attention kernel against its plain PyTorch version on the
      card at the v3 shapes (B=4, H=8, T=188, Dh=128, lengths
      [188,100,17,188], bf16; max abs error on valid rows below 0.06), in
@@ -115,10 +116,26 @@ line is not printed:
      launches, idle share and peak memory; then full width at reduced depth
      in f32 (SenseVoice 2 + 2 SANM blocks, Paraformer 4 + 2, Cohere 4
      encoder + 2 decoder layers, Silero) on the card against the CPU:
-     outputs within 1e-4 relative L2 (Silero 1e-5 abs) and tokens equal.
+     outputs within 1e-4 relative L2 (Silero 1e-5 abs) and tokens equal;
+ 16. diarization: the attention kernel against its plain version at
+     Sortformer's shapes (SORTFORMER_V2: Dh 64, H 8; T 384 at B 16, the
+     offline windows, and T 6 at B 1024, the streaming chunks), in f32 (tol
+     1e-4) and bf16 (tol 0.06), timed beside its bound; the trained
+     `offline` (offline and online managers) and `sortformer` fixtures on
+     the card against the CPU (segments and DER equal, gates met, no kernel
+     launched); at full width with seeded random weights drawn on the card,
+     on 300 s of a 2-speaker mixture: `OfflineDiarizerManager()`,
+     `DiarizerManager()` with each segmentation net, and Sortformer v2
+     `process`, `process_offline` and 50 live `process_chunk` calls, each
+     path counted (exactly 17 attention launches per Sortformer encoder
+     call, 0 on the pyannote/WeSpeaker paths) and timed with its
+     PipelineTimings stages; then full width at reduced depth in f32 on the
+     card against the CPU (segmentation logits of both nets, ResNet
+     embeddings, Sortformer predictions within 1e-4 relative L2, binarised
+     predictions equal away from the threshold).
 
 The line before the last is the kernel record (JSON, with each kernel's
-launches on its main path and on each path of phases 11-15, the plain
+launches on its main path and on each path of phases 11-16, the plain
 attention's calls on the paths that take it, bound and times); the last
 line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -211,11 +228,14 @@ def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attention_cost(B: int, H: int, T: int, Dh: int, out_bytes: int) -> tuple[int, int]:
-    """(bytes, bf16 operations) of one relpos_attention call with every row
-    full length: q.k, the shifted q.p band and P.V over every key; bf16 in,
-    out in `out_bytes` per element, each read or written once."""
-    nbytes = (4 * B * H * T * Dh + H * (2 * T - 1) * Dh) * 2 + B * 4 + B * H * T * Dh * out_bytes
+def attention_cost(B: int, H: int, T: int, Dh: int, out_bytes: int, in_bytes: int = 2
+                   ) -> tuple[int, int]:
+    """(bytes, operations) of one relpos_attention call with every row full
+    length: q.k, the shifted q.p band and P.V over every key; `in_bytes`
+    per input element (bf16 by default), out in `out_bytes` per element,
+    each read or written once."""
+    nbytes = ((4 * B * H * T * Dh + H * (2 * T - 1) * Dh) * in_bytes + B * 4
+              + B * H * T * Dh * out_bytes)
     return nbytes, 3 * 2 * B * H * T * T * Dh
 
 
@@ -281,7 +301,7 @@ def set_int8_matmul(encoder, fn) -> None:
 def phase_device(attn, i8) -> tuple[str, str]:
     from concurrent.futures import ThreadPoolExecutor
 
-    from fluidaudio_tpu_torch.native import flac
+    from fluidaudio_tpu_torch.native import cxx, fastcluster, flac
     from fluidaudio_tpu_torch.ops import build
 
     smi = subprocess.run(
@@ -289,18 +309,22 @@ def phase_device(attn, i8) -> tuple[str, str]:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
-    with ThreadPoolExecutor(1) as pool:  # the host C++ build beside the two nvcc
+    with ThreadPoolExecutor(2) as pool:  # the host C++ builds beside the two nvcc
         flac_build = pool.submit(flac.build_library)
+        fc_build = pool.submit(fastcluster.build_library)
         built = build.build(attn.KERNEL_SOURCE, i8.KERNEL_SOURCE)
         flac_lib, flac_s = flac_build.result()
-    cxx = subprocess.run([flac.compiler(), "--version"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.splitlines()[0]
+        fc_lib, fc_s = fc_build.result()
+    compiler = subprocess.run([cxx.compiler(), "--version"], capture_output=True, text=True,
+                              timeout=60, check=True).stdout.splitlines()[0]
     attn_lib = attn.load_library()
     lib = i8.load_library()
+    fastcluster.load_library()
     builds = " | ".join(f"{name} {sec:.2f} s" for name, (sec, _) in built.items())
     print(f"phase 1 device: {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
-          f"| kernel builds (parallel nvcc): {builds} | FLAC decoder {flac_lib.name} "
-          f"({cxx}, {' '.join(flac.CXX_FLAGS)}): {flac_s:.2f} s")
+          f"| kernel builds (parallel nvcc): {builds} | host C++ ({compiler}, "
+          f"{' '.join(cxx.CXX_FLAGS)}): FLAC decoder {flac_lib.name} {flac_s:.2f} s, "
+          f"fastcluster {fc_lib.name} {fc_s:.2f} s")
     report = ptxas_report(built[attn.KERNEL_SOURCE.name][1], "relpos_attention_wgmma")
     print(f"phase 1 relpos_attention_wgmma (nvcc -Xptxas -v): "
           f"{report or 'built before this run'} | dynamic shared memory "
@@ -989,14 +1013,17 @@ def busy_ms(kernels) -> float:
     return total / 1e3
 
 
-def profile_calls(fn, n: int) -> tuple[float, float]:
+def profile_calls(fn, n: int, host_ops: bool = True) -> tuple[float, float]:
     """torch.profiler over n calls of fn -> (kernel launches per call, device
-    busy ms per call). Copies and memsets are busy time, not launches."""
+    busy ms per call). Copies and memsets are busy time, not launches.
+    `host_ops=False` records the device alone (no host op events: a path of
+    ~10^5 launches then profiles in seconds, not minutes)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host_ops else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
@@ -1913,11 +1940,12 @@ def reduced_depth_parity(device) -> str:
     return " | ".join(parts)
 
 
-def time_request(smi: str, label: str, fn, audio_s: float, runs: int = 5) -> str:
+def time_request(smi: str, label: str, fn, audio_s: float, runs: int = 5,
+                 host_ops: bool = True) -> str:
     """Host wall per request (median after one warm-up), RTFx, launches,
     device busy and idle share (profiler) and peak memory."""
     ms = host_ms(fn, runs=runs)
-    launches, busy = profile_calls(fn, 1)
+    launches, busy = profile_calls(fn, 1, host_ops)
     _, peak = peak_gib(fn)
     line = (f"timing [{smi}] {label}: median {ms:.3f} ms per request (host wall), RTFx "
             f"{audio_s / (ms / 1e3):.1f}, {launches:.0f} kernel launches and {busy:.3f} ms device "
@@ -2087,6 +2115,269 @@ def phase_families_full_width(attn, i8, device, smi: str) -> dict:
     return paths
 
 
+# ------------------------------------------------------------- phase 16
+
+# the attention kernel at Sortformer's shapes (SORTFORMER_V2: 8 heads, Dh 64):
+# the offline 30.72 s windows (T 384, a bucket of 16) and the streaming
+# chunks (T 6, a bucket of 1024 chunks: a 300 s recording's 625 chunks)
+SORTFORMER_ATTN_SHAPES = [(16, 8, 384, 64), (1024, 8, 6, 64)]
+# f32 in (the config's dtype: the kernel's SIMT path) against the plain
+# version in f32: the same math in another order
+SF_F32_TOL = 1e-4
+F32_FLOPS = 67e12  # float32 outside the tensor cores (data sheet, dense)
+DIAR_SECONDS = 300.0
+SF_LIVE_CHUNKS = 50
+SF_ENCODER_LAYERS = 17  # SORTFORMER_V2: one attention launch per layer per encoder call
+
+
+def sortformer_attention(attn, device, smi: str) -> tuple[float, list[str]]:
+    """The attention kernel against its plain version at Sortformer's
+    shapes, in f32 and bf16, in the encoder's call form (strided views,
+    `out=` in the input dtype), and timed beside its bound. -> (max abs
+    error, lines)."""
+    worst, lines = 0.0, []
+    for B, H, T, Dh in SORTFORMER_ATTN_SHAPES:
+        lens = torch.full((B,), T, dtype=torch.int32, device=device)
+        for dtype, tol, peak in ((torch.float32, SF_F32_TOL, F32_FLOPS),
+                                 (torch.bfloat16, PARITY_TOL, BF16_FLOPS)):
+            qu, qw, k, v, p = attention_inputs(B, H, T, Dh, dtype, device, seed=16,
+                                               strided=True)
+            out = torch.empty(B, T, H, Dh, dtype=dtype, device=device).transpose(1, 2)
+            kernel = lambda: attn.relpos_attention(qu, qw, k, v, p, lens, T, out=out)
+            plain = lambda: attn.relpos_attention_plain(qu, qw, k, v, p, lens, T)
+            got = kernel().float()
+            err = float((got - plain()).abs().max())
+            check(err <= tol, f"relpos_attention B={B} T={T} Dh={Dh} {dtype}: err {err} > {tol}")
+            worst = max(worst, err) if dtype == torch.bfloat16 else worst
+            p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
+            size = 4 if dtype == torch.float32 else 2
+            nbytes, ops = attention_cost(B, H, T, Dh, size, size)
+            bound_ms, bound_by = bound(nbytes, ops, peak)
+            name = "f32" if dtype == torch.float32 else "bf16"
+            line = (f"timing [{smi}] relpos_attention B={B} H={H} T={T} Dh={Dh} {name} "
+                    f"(encoder form): kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+                    f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB, peak "
+                    f"{peak / 1e12:.0f} TFLOP/s), {bound_ms / min(k1, k2):.1%} of it; "
+                    f"max abs err {err:.2e} (tol {tol})")
+            print(line, flush=True)
+            lines.append(line)
+    return worst, lines
+
+
+def diarizer_fixture_runs(device) -> dict:
+    """The trained `offline` (offline and online managers) and `sortformer`
+    fixtures on `device`: segments and DER of each fixture evaluation."""
+    from fluidaudio_tpu_torch.diarizer.sortformer import SortformerDiarizer
+    from fluidaudio_tpu_torch.models.sortformer import SORTFORMER_TEST
+    from fluidaudio_tpu_torch.train import fixtures as fx
+    from fluidaudio_tpu_torch.train import tiny_corpus as tc
+
+    def segs(result):
+        return [(s.speaker_id, round(s.start_time, 6), round(s.end_time, 6))
+                for s in result.segments]
+
+    mix = lambda seed: tc.diarizer_mixture(np.random.RandomState(seed), 60.0)[0]
+    sf = SortformerDiarizer(SORTFORMER_TEST, checkpoint_dir=TRAINED / "sortformer", device=device)
+    return {
+        "offline": (segs(fx.offline_diarizer_manager(device=device).process(mix(13579))),
+                    fx.eval_offline_diarizer_fixture(device=device)),
+        "online": (segs(fx.online_diarizer_manager(device=device).process(mix(97531))),
+                   fx.eval_online_diarizer_fixture(device=device)["der"]),
+        "sortformer offline": (segs(sf.process_offline(mix(4242))),
+                               fx.eval_sortformer_fixture(device=device)),
+        "sortformer streaming": (segs(sf.process(mix(4242))), None),
+    }
+
+
+def diarizer_reduced_depth_parity(device) -> str:
+    """Full width, reduced depth, f32, seeded random weights drawn on the
+    card and copied to the CPU: the pyannote attention net and PyanNet
+    (logits), WeSpeaker ResNet (1 block per stage, embeddings), Sortformer
+    (2 encoder + 2 transformer layers: offline window and 8 streaming
+    chunks); the card's outputs against the CPU's, and the binarised
+    Sortformer predictions equal wherever they are not within 1e-3 of the
+    threshold."""
+    from dataclasses import replace
+
+    from fluidaudio_tpu_torch.diarizer.sortformer import OFFLINE_WINDOW_MEL, SortformerDiarizer
+    from fluidaudio_tpu_torch.models import pyannote_seg as ps
+    from fluidaudio_tpu_torch.models import wespeaker as ws
+    from fluidaudio_tpu_torch.models.sortformer import SORTFORMER_V2
+    from fluidaudio_tpu_torch.models.zoo import random_init_
+    from fluidaudio_tpu_torch.train import tiny_corpus as tc
+
+    def pair(make, seed):
+        on_card = make(device).eval()
+        random_init_(on_card, torch.Generator(device=device).manual_seed(seed))
+        on_cpu = make("cpu").eval()
+        on_cpu.load_state_dict({k: v.cpu() for k, v in on_card.state_dict().items()})
+        return on_card, on_cpu
+
+    rs = np.random.RandomState(16)
+    mix = tc.diarizer_mixture(rs, 40.0, overlap_prob=0.2)[0]
+    wav = np.stack([mix[:160_000], mix[160_000:320_000]])
+    parts = []
+    for label, make in (("attention segmentation", lambda d: ps.PyannoteSegmentation(device=d)),
+                        ("PyanNet", lambda d: ps.PyanNet(device=d))):
+        card, cpu = pair(make, 1)
+        a, b = card(torch.from_numpy(wav).to(device)), cpu(torch.from_numpy(wav))
+        err = rel_l2(a.cpu(), b)
+        same = float((a.argmax(-1).cpu() == b.argmax(-1)).float().mean())
+        check(err <= FAMILY_CARD_TOL, f"{label} card vs CPU rel L2 {err}")
+        parts.append(f"{label} logits rel L2 {err:.2e} (argmax equal on {same:.4f} of frames)")
+
+    card, cpu = pair(lambda d: ws.WeSpeakerEmbedder(ws.WeSpeakerConfig.tiny(), device=d), 2)
+    fbank = ws.make_fbank_frontend("cpu")
+    mel = fbank(torch.from_numpy(wav))[0].transpose(1, 2).contiguous()
+    mask = torch.from_numpy((rs.rand(2, 589) > 0.3).astype(np.float32))
+    a, b = card(mel.to(device), mask.to(device)), cpu(mel, mask)
+    err = rel_l2(a.cpu(), b)
+    check(err <= FAMILY_CARD_TOL, f"WeSpeaker card vs CPU rel L2 {err}")
+    parts.append(f"WeSpeaker ResNet (1 block per stage, 32-256 ch) embeddings rel L2 {err:.2e}")
+
+    cfg = replace(SORTFORMER_V2, n_encoder_layers=2, n_transformer_layers=2)
+    card_d = SortformerDiarizer(cfg, device=device, checkpoint_dir=REPO / "no-checkpoint")
+    cpu_d = SortformerDiarizer(cfg, device="cpu", checkpoint_dir=REPO / "no-checkpoint")
+    cpu_d.model.load_state_dict({k: v.cpu() for k, v in card_d.model.state_dict().items()})
+    window = OFFLINE_WINDOW_MEL * 160
+    step = window - 64 * 1280
+    flat = np.zeros(2 * step, np.float32)
+    flat[: min(mix.size, flat.size)] = mix[: flat.size]
+    chunks = mix[: 8 * cfg.chunk_frames * 1280].reshape(8, -1)
+    for label, run in (
+            ("offline window (T 384)",
+             lambda d: d.offline_windows(torch.from_numpy(flat).to(d.device), 1, step, window)),
+            ("8 streaming chunks (T 6)",
+             lambda d: d.stream_program(torch.from_numpy(chunks).to(d.device), d.make_state())[0])):
+        a, b = run(card_d).cpu(), run(cpu_d)
+        err = rel_l2(a, b)
+        firm = ((a - 0.5).abs() > 1e-3) & ((b - 0.5).abs() > 1e-3)
+        same = bool(torch.equal((a >= 0.5)[firm], (b >= 0.5)[firm]))
+        check(err <= FAMILY_CARD_TOL and same,
+              f"Sortformer {label} card vs CPU: rel L2 {err}, binarised equal {same}")
+        parts.append(f"Sortformer 2 enc x 512 + 2 tf x 192, {label}: preds rel L2 {err:.2e}, "
+                     f"segments equal on {int(firm.sum())}/{firm.numel()} firm frames")
+    return " | ".join(parts)
+
+
+def time_diarizer(smi: str, label: str, fn, audio_s: float, runs: int = 2) -> str:
+    """`time_request` (device-only profile), then the PipelineTimings stages
+    of its last call."""
+    last = {}
+    line = time_request(smi, label, lambda: last.update(r=fn()), audio_s, runs=runs,
+                        host_ops=False)
+    t = last["r"].timings
+    print(f"timing [{smi}] {label}: PipelineTimings segmentation "
+          f"{t.segmentation_seconds * 1e3:.1f} ms, embedding {t.embedding_seconds * 1e3:.1f} ms, "
+          f"clustering {t.clustering_seconds * 1e3:.1f} ms, post "
+          f"{t.post_processing_seconds * 1e3:.1f} ms, total {t.total_seconds * 1e3:.1f} ms",
+          flush=True)
+    return line
+
+
+def phase_diarizers(attn, i8, device, smi: str) -> tuple[dict, float, list[str]]:
+    """Phase 16: the attention kernel at Sortformer's shapes; the trained
+    diarizer fixtures on the card against the CPU; the offline, online and
+    Sortformer diarizers at full width on 300 s, each path counted and
+    timed; the reduced-depth card-vs-CPU parity. -> (launches per path,
+    the kernel's max abs error at these shapes in bf16, timing lines)."""
+    from fluidaudio_tpu_torch.diarizer.manager import DiarizerManager
+    from fluidaudio_tpu_torch.diarizer.offline.manager import OfflineDiarizerManager
+    from fluidaudio_tpu_torch.diarizer.sortformer import SortformerDiarizer
+    from fluidaudio_tpu_torch.train import fixtures as fx
+    from fluidaudio_tpu_torch.train import tiny_corpus as tc
+
+    err, lines = sortformer_attention(attn, device, smi)
+    print(f"phase 16 relpos_attention at Sortformer's shapes (Dh 64, H 8; T 384 at B 16 and "
+          f"T 6 at B 1024), f32 (tol {SF_F32_TOL}) and bf16 (tol {PARITY_TOL}) against the "
+          f"plain version: bf16 max abs err {err:.2e}", flush=True)
+
+    out, c = counted(attn, i8, lambda: diarizer_fixture_runs(device))
+    cpu = diarizer_fixture_runs("cpu")
+    parts = []
+    for name, (segments, der) in out.items():
+        check(segments == cpu[name][0] and der == cpu[name][1],
+              f"{name} fixture on the card: segments or DER differ from the CPU")
+        parts.append(f"{name}: {len(segments)} segments"
+                     + (f", DER {der:.4f}" if der is not None else "") + " (= CPU)")
+    check(out["offline"][1] <= fx.DIAR_DER_GATE and out["online"][1] <= fx.ONLINE_DIAR_DER_GATE
+          and out["sortformer offline"][1] <= fx.DIAR_DER_GATE, "a diarizer fixture fails its gate")
+    check(c["relpos_attention"] == 0 and c["int8_matmul_fused"] == 0,
+          f"diarizer fixtures launched a kernel: {c}")
+    print(f"phase 16 trained diarizer fixtures on the card vs the CPU port: {' | '.join(parts)} "
+          f"| launches {c} (the sortformer fixture's Dh-8 encoder takes the plain attention)",
+          flush=True)
+    paths = {"diarizer fixtures (phase 16)": c}
+
+    audio = tc.diarizer_mixture(np.random.RandomState(300), DIAR_SECONDS, overlap_prob=0.1)[0]
+    empty = REPO / "no-checkpoint"  # seeded random weights, drawn on the card
+    # the online managers pad the last 10 s chunk, as JAX's do: a segment may
+    # run to its end
+    managers = [
+        ("offline diarizer (attention seg + ResNet34 + PLDA/AHC/VBx)",
+         OfflineDiarizerManager(checkpoint_dir=empty, device=device), 0.5),
+        ("online diarizer (attention seg)", DiarizerManager(checkpoint_dir=empty, device=device),
+         10.0),
+        ("online diarizer (PyanNet seg)",
+         DiarizerManager(checkpoint_dir=empty, segmentation_arch="pyannet", device=device), 10.0),
+    ]
+    for label, mgr, slack in managers:
+        result, c = counted(attn, i8, lambda: mgr.process(audio))
+        check(c["relpos_attention"] == 0 and c["int8_matmul_fused"] == 0,
+              f"{label}: launches {c}")
+        check(all(0 <= s.start_time < s.end_time <= DIAR_SECONDS + slack
+                  for s in result.segments), f"{label}: a segment outside the recording")
+        key = f"{label}, {DIAR_SECONDS:.0f} s"
+        paths[key] = c
+        lines.append(time_diarizer(smi, f"{key}: {len(result.segments)} segments, "
+                                        f"{result.speaker_count} speakers, launches {c}",
+                                   lambda: mgr.process(audio), DIAR_SECONDS))
+    del managers
+    torch.cuda.empty_cache()
+
+    sf = SortformerDiarizer(checkpoint_dir=empty, device=device)
+    for label, fn in (("process", sf.process), ("process_offline", sf.process_offline)):
+        result, c = counted(attn, i8, lambda: fn(audio))
+        check(c["relpos_attention"] == SF_ENCODER_LAYERS and c["int8_matmul_fused"] == 0
+              and c["relpos_attention_plain calls"] == 0,
+              f"sortformer {label}: launches {c}, want {SF_ENCODER_LAYERS} per encoder call")
+        check(all(0 <= s.start_time < s.end_time <= DIAR_SECONDS + 0.5 for s in result.segments),
+              f"sortformer {label}: a segment outside the recording")
+        key = f"sortformer v2 {label}, {DIAR_SECONDS:.0f} s"
+        paths[key] = c
+        lines.append(time_diarizer(smi, f"{key}: {len(result.segments)} segments, launches {c} "
+                                        f"(1 encoder call)", lambda: fn(audio), DIAR_SECONDS))
+    chunk = sf.cfg.chunk_frames * 1280
+
+    def live():
+        state = sf.make_state()
+        preds = []
+        for i in range(SF_LIVE_CHUNKS):
+            p, state = sf.process_chunk(audio[i * chunk : (i + 1) * chunk], state)
+            preds.append(p)
+        return np.concatenate(preds)
+
+    preds, c = counted(attn, i8, live)
+    check(c["relpos_attention"] == SF_ENCODER_LAYERS * SF_LIVE_CHUNKS
+          and np.isfinite(preds).all() and preds.shape == (SF_LIVE_CHUNKS * 6, 4),
+          f"sortformer live chunks: launches {c}, preds {preds.shape}")
+    key = f"sortformer v2 process_chunk x{SF_LIVE_CHUNKS} (live)"
+    paths[key] = c
+    ms = host_ms(live, runs=2)
+    launches, busy = profile_calls(live, 1, host_ops=False)
+    line = (f"timing [{smi}] {key}: {ms / SF_LIVE_CHUNKS:.3f} ms per 480 ms chunk (host wall, "
+            f"median of 2 runs of {SF_LIVE_CHUNKS}), {launches / SF_LIVE_CHUNKS:.0f} kernel "
+            f"launches and {busy / SF_LIVE_CHUNKS:.3f} ms device busy per chunk, idle share "
+            f"{max(0.0, 1 - busy / ms):.3f}, launches {c}")
+    print(line, flush=True)
+    lines.append(line)
+    del sf
+    torch.cuda.empty_cache()
+    print(f"phase 16 full width, reduced depth, f32, card vs CPU (tol {FAMILY_CARD_TOL} rel L2): "
+          f"{diarizer_reduced_depth_parity(device)}", flush=True)
+    return paths, err, lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU", file=sys.stderr)
@@ -2129,6 +2420,9 @@ def main() -> int:
     elapsed("phase 14")
     paths.update(phase_families_full_width(attn, i8, device, smi))
     elapsed("phase 15")
+    diar_paths, diar_err, _ = phase_diarizers(attn, i8, device, smi)
+    paths.update(diar_paths)
+    elapsed("phase 16")
     print(json.dumps({"kernels": [{
         "name": "relpos_attention",
         "route": "cuda",
@@ -2140,6 +2434,7 @@ def main() -> int:
         "launches_by_path": {k: v["relpos_attention"] for k, v in paths.items()},
         "plain_calls_by_path": {k: v["relpos_attention_plain calls"] for k, v in paths.items()
                                 if v["relpos_attention_plain calls"]},
+        "max_abs_err_sortformer_shapes_bf16": diar_err,
     }, {
         "name": "int8_matmul_fused",
         "route": "cuda",

@@ -3,11 +3,8 @@
 Port of `fluidaudio_tpu/native/flac.py`. The decoder is the repo's
 `native/flac/flac.cpp` (written from RFC 9639; libc/libstdc++ only), built
 on its own with the host C++ compiler at first use into
-`fluidaudio_tpu_torch/_build/libflac_<hash>.so`, keyed by the hash of the
-source, its header and the flags, as `ops/build.py` keys the CUDA kernels.
-The library is written to a temporary file and moved into place with
-`os.replace`, so concurrent first uses (test workers) cannot see a partial
-library. A failed build raises; nothing falls back.
+`fluidaudio_tpu_torch/_build/libflac_<hash>.so` by `native/cxx.py`. A failed
+build raises; nothing falls back.
 
 Output is interleaved int16 [frames, channels], which rides the int16 PCM
 path of `utils/audio_source.py` unchanged.
@@ -17,20 +14,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import numpy as np
 
+from fluidaudio_tpu_torch.native import cxx
 from fluidaudio_tpu_torch.ops.build import BUILD_DIR
 
-SOURCE = Path(__file__).resolve().parents[2] / "native" / "flac" / "flac.cpp"
-HEADER = SOURCE.with_name("flac.h")
-CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+SOURCE = cxx.NATIVE_DIR / "flac" / "flac.cpp"
 
 _ERRORS = {
     1: "not a FLAC stream",
@@ -45,38 +36,14 @@ class FlacError(ValueError):
     pass
 
 
-def compiler() -> str:
-    """The host C++ compiler: $CXX, else c++ / g++ / clang++ on PATH."""
-    found = os.environ.get("CXX") or next(
-        (c for c in ("c++", "g++", "clang++") if shutil.which(c)), None)
-    if not found:
-        raise RuntimeError("no C++ compiler found for the FLAC decoder: set CXX")
-    return found
-
-
 def library_path() -> Path:
-    tag = hashlib.sha256(SOURCE.read_bytes() + HEADER.read_bytes()
-                         + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libflac_{tag}.so"
+    return cxx.library_path(SOURCE, "flac", BUILD_DIR)
 
 
 def build_library() -> tuple[Path, float]:
     """Compile the decoder if its library is missing -> (library, seconds the
     compile took; 0.0 when it was already built). Raises on failure."""
-    lib = library_path()
-    if lib.exists():
-        return lib, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [compiler(), *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"FLAC decoder build failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, time.perf_counter() - t0
+    return cxx.build_library(SOURCE, "flac", BUILD_DIR, "FLAC decoder")
 
 
 @functools.cache

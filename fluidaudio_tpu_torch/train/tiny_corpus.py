@@ -11,7 +11,9 @@ The language has 16 words. Word `i` is a 0.30 s pure tone at
 decode reads "w3 w7 w1 ...". The multilingual Nemotron fixture adds a second
 language, "b": word `i` is a fundamental at `200 * 1.17**i` Hz plus a strong
 2.3x partial, read "v{i}". The VAD fixture's speech is `speechish`,
-AM-modulated noise.
+AM-modulated noise. The diarizer fixtures (`offline`, `sortformer`) hear
+two "speakers", each a 3-partial harmonic stack with its own amplitude
+modulation, mixed by `diarizer_mixture` into turns with reference segments.
 """
 
 from __future__ import annotations
@@ -115,3 +117,66 @@ def speechish(seconds: float, rs: np.random.RandomState) -> np.ndarray:
         0.3 + 0.7 * (np.sin(2 * np.pi * 0.31 * t) > 0)
     )
     return (rs.randn(t.size) * 0.1 * (0.05 + env)).astype(np.float32)
+
+
+# ----------------------------------------------------------------- diarizer
+
+SPEAKER_STACKS = (
+    (300.0, 450.0, 620.0),  # "speaker A": low harmonic stack
+    (1800.0, 2300.0, 2900.0),  # "speaker B": high harmonic stack
+)
+
+
+def speaker_wave(k: int, seconds: float, rs: np.random.RandomState) -> np.ndarray:
+    t = np.arange(int(seconds * SR)) / SR
+    sig = np.zeros(t.size)
+    for f in SPEAKER_STACKS[k]:
+        sig += np.sin(2 * np.pi * f * t + rs.uniform(0, 2 * np.pi))
+    am = 0.6 + 0.4 * np.sin(2 * np.pi * (3.1 if k == 0 else 2.3) * t
+                            + rs.uniform(0, 2 * np.pi))
+    return (0.18 * am * sig).astype(np.float32)
+
+
+def diarizer_mixture(
+    rs: np.random.RandomState,
+    seconds: float,
+    overlap_prob: float = 0.0,
+    frame_sec: float = 0.08,
+) -> tuple[np.ndarray, list[tuple[str, float, float]], np.ndarray]:
+    """2-speaker mixture.
+
+    Returns (mix [seconds*SR], ref segments [(speaker, start, end)...],
+    arrival-order frame labels [T, 4]) where T = seconds/frame_sec and
+    slot 0 is the first speaker to speak."""
+    total = int(seconds * SR)
+    mix = rs.randn(total).astype(np.float32) * 0.002
+    segs: list[tuple[int, float, float]] = []
+    pos = float(rs.uniform(0.2, 1.0))
+    spk = int(rs.randint(0, 2))
+    while pos < seconds - 2.0:
+        dur = float(rs.uniform(2.0, 6.0))
+        dur = min(dur, seconds - pos - 0.2)
+        s0, s1 = int(pos * SR), int(pos * SR) + int(dur * SR)
+        wave = speaker_wave(spk, dur, rs)
+        mix[s0 : s0 + wave.size] += wave[: total - s0]
+        segs.append((spk, pos, pos + dur))
+        gap = float(rs.uniform(0.4, 1.2))
+        if rs.rand() < overlap_prob:
+            gap = -float(rs.uniform(0.3, 1.0))  # next segment overlaps tail
+        pos = pos + dur + gap
+        spk = 1 - spk
+    # arrival-order slot mapping
+    order: list[int] = []
+    for k, _, _ in segs:
+        if k not in order:
+            order.append(k)
+    slot_of = {k: i for i, k in enumerate(order)}
+    T = int(round(seconds / frame_sec))
+    labels = np.zeros((T, 4), np.float32)
+    ref = []
+    for k, s, e in segs:
+        f0, f1 = int(round(s / frame_sec)), int(round(e / frame_sec))
+        labels[f0 : min(f1, T), slot_of[k]] = 1.0
+        ref.append((f"spk{k}", s, e))
+    return mix, ref, labels
+

@@ -8,7 +8,13 @@ and maps each to a torch `state_dict` key and layout:
 - flax Dense `kernel [in, out]`            -> `weight [out, in]`
 - flax Conv1d `kernel [k, in/g, out]`       -> `weight [out, in/g, k]` (the
   depthwise FSMN `[K, 1, D]` -> `[D, 1, K]`, Silero's STFT basis
-  `[256, 1, 258]` -> `[258, 1, 256]`)
+  `[256, 1, 258]` -> `[258, 1, 256]`, the segmentation stem
+  `[251, 1, C]` -> `[C, 1, 251]`)
+- flax DenseGeneral in attention (`nn.SelfAttention` /
+  `MultiHeadDotProductAttention`): `query`/`key`/`value` `kernel [d, H, Dh]`
+  -> `weight [H*Dh, d]` and `bias [H, Dh]` -> `[H*Dh]`; `out`
+  `kernel [H, Dh, d]` -> `weight [d, H*Dh]`. A 3-D kernel under those names
+  is never a Conv1d (the two have the same rank, so the name decides).
 - flax Conv2d `kernel [kh, kw, in/g, out]`  -> `weight [out, in/g, kh, kw]`
 - flax LayerNorm `scale`                    -> `weight`
 - JAX `Int8Dense` `kernel_q [in, out]` int8 -> `weight_q [out, in]` int8
@@ -33,12 +39,24 @@ import torch
 from torch import nn
 
 
+_DENSE_GENERAL_IN = ("query", "key", "value")
+
+
 def _torch_key_and_value(flax_key: str, value: np.ndarray) -> tuple[str, np.ndarray]:
     parts = flax_key.split("/")
     if parts[0] == "params":
         parts = parts[1:]
     leaf = parts[-1]
-    if leaf == "kernel":
+    owner = parts[-2] if len(parts) > 1 else ""
+    if owner in _DENSE_GENERAL_IN and leaf == "kernel" and value.ndim == 3:
+        value = value.reshape(value.shape[0], -1).T
+        parts[-1] = "weight"
+    elif owner in _DENSE_GENERAL_IN and leaf == "bias" and value.ndim == 2:
+        value = value.reshape(-1)
+    elif owner == "out" and leaf == "kernel" and value.ndim == 3:
+        value = value.reshape(-1, value.shape[-1]).T
+        parts[-1] = "weight"
+    elif leaf == "kernel":
         if value.ndim == 2:
             value = value.T
         elif value.ndim == 3:

@@ -15,6 +15,7 @@ from fluidaudio_tpu.asr.config import ASRConfig as JaxASRConfig
 from fluidaudio_tpu_torch.asr.arbitration import ArbitrationDecision, arbitrate
 from fluidaudio_tpu_torch.asr.config import ASRConfig
 from tests.test_torch_sliding_window import jax_asr_manager, port_asr_manager, utterance
+from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

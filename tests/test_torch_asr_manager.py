@@ -23,6 +23,7 @@ from fluidaudio_tpu_torch.asr.config import ASRConfig
 from fluidaudio_tpu_torch.asr.manager import AsrManager
 from fluidaudio_tpu_torch.models.zoo import AsrModels
 from fluidaudio_tpu_torch.train import tiny_corpus as port_tc
+from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
 
 CKPT = trained_assets_dir() / "asr"
 

@@ -19,6 +19,7 @@ from fluidaudio_tpu.ops.attention_pallas import (
     relpos_attention_reference,
 )
 from fluidaudio_tpu_torch.ops import attention as port
+from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
 
 
 def _mk(B=2, H=2, T=40, Dh=128, seed=0):

@@ -10,7 +10,7 @@ import pytest
 
 from fluidaudio_tpu.utils import audio_stream as jax_stream
 from fluidaudio_tpu_torch.utils import audio_stream as port_stream
-from tests.test_torch_custom_vocab import jax_cases
+from tests.test_torch_custom_vocab import jax_cases, one_torch_thread  # noqa: F401
 
 CASES = jax_cases("test_metrics_and_stream.py", modules=("utils.audio_stream",),
                   select=("TestAudioRingBuffer", "TestAudioStream"))

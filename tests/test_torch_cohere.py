@@ -36,7 +36,7 @@ from fluidaudio_tpu_torch.models import cohere_asr as port_co
 from fluidaudio_tpu_torch.train import fixtures as port_fx
 from fluidaudio_tpu_torch.train import tiny_corpus as tc
 from fluidaudio_tpu_torch.utils import weights
-from tests.test_torch_custom_vocab import jax_cases, jax_fixtures
+from tests.test_torch_custom_vocab import jax_cases, jax_fixtures, one_torch_thread  # noqa: F401
 from tests.test_torch_sensevoice import REL_L2, held_out, jitter, rel_l2, to_port
 
 JAX_CFG = jax_fx.cohere_tiny_config()

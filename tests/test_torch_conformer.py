@@ -20,6 +20,7 @@ from fluidaudio_tpu.train.fixtures import trained_assets_dir
 from fluidaudio_tpu_torch.models import conformer as port
 from fluidaudio_tpu_torch.ops.attention import relpos_attention
 from fluidaudio_tpu_torch.utils.weights import from_jax_params, load_state
+from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
 
 TINY = dict(d_model=64, n_layers=2, n_heads=4, subsampling_channels=32, dtype="float32")
 DH128 = dict(d_model=256, n_layers=2, n_heads=2, subsampling_channels=32, dtype="float32")

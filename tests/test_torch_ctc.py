@@ -20,7 +20,7 @@ import torch
 from fluidaudio_tpu.ops import ctc_decode as jax_ctc
 from fluidaudio_tpu_torch.ops import ctc_decode as port_ctc
 from tests.test_ctc_scenarios import ARPA_TEXT
-from tests.test_torch_custom_vocab import jax_cases
+from tests.test_torch_custom_vocab import jax_cases, one_torch_thread  # noqa: F401
 
 
 def _log_probs(seed, B, T, V, blank):

@@ -19,6 +19,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from fluidaudio_tpu.asr.custom_vocab import context as jax_context
 from fluidaudio_tpu.asr.custom_vocab import ctc_spotter as jax_spotter
@@ -32,6 +33,20 @@ from fluidaudio_tpu_torch.asr.tokenizer import Tokenizer as PortTokenizer
 
 
 _MODULES: dict = {}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run a port test module's torch ops on one intra-op thread, restoring
+    the count after it. pytest-xdist runs several workers on the same cores
+    (`-n 6 --dist loadfile` keeps a file on one worker); torch's default of
+    one OpenMP thread per core then oversubscribes the machine and a batch
+    that takes tens of ms alone takes seconds. Every `tests/test_torch_*.py`
+    file imports this fixture, which applies it to all of its tests."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def jax_module(test_file: str, modules=("",), overrides=None, edits=()) -> types.ModuleType:

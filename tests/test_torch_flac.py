@@ -17,6 +17,7 @@ from fluidaudio_tpu.native import flac as jax_flac
 from fluidaudio_tpu_torch.native import flac as port_flac
 from fluidaudio_tpu_torch.utils import audio_io
 from tests.test_flac import _pcm16, encode_flac
+from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
 
 
 def _smooth(n=1500):

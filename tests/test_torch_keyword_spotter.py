@@ -23,7 +23,7 @@ from fluidaudio_tpu_torch.asr import keyword_spotter as port_kws
 from fluidaudio_tpu_torch.train import fixtures as port_fx
 from fluidaudio_tpu_torch.train import tiny_corpus as tc
 from fluidaudio_tpu_torch.utils.weights import load_npz
-from tests.test_torch_custom_vocab import jax_cases
+from tests.test_torch_custom_vocab import jax_cases, one_torch_thread  # noqa: F401
 
 TERMS = ["w0 w3", "w5", "w1 w2 w6", "w4 w7", "w11"]
 

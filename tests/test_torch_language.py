@@ -31,6 +31,7 @@ from fluidaudio_tpu_torch.asr.tokenizer import Tokenizer
 from fluidaudio_tpu_torch.models.zoo import AsrModels, _placeholder_vocab
 from fluidaudio_tpu_torch.train import tiny_corpus as tc
 from fluidaudio_tpu_torch.utils import language
+from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
 
 CKPT = trained_assets_dir() / "asr"
 LANGUAGES = ["en", "es", "ru", "uk", "el", "ja", "zh", "ko"]

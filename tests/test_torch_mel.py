@@ -13,6 +13,7 @@ import torch
 
 from fluidaudio_tpu.ops.mel import MelConfig, MelFrontend as JaxMel, log_mel_numpy
 from fluidaudio_tpu_torch.ops import mel as port
+from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
 
 N = 24160
 LENGTHS = np.array([N, 9000, 1600], np.int32)

@@ -23,6 +23,7 @@ from fluidaudio_tpu_torch.asr.multi_stream import MultiStreamEouManager
 from fluidaudio_tpu_torch.asr.streaming_eou import EOU_TEST, StreamingEouAsrManager
 from fluidaudio_tpu_torch.models.conformer_streaming import StreamingConformerConfig
 from fluidaudio_tpu_torch.train import tiny_corpus as tc
+from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
 
 TINY = dict(d_model=64, n_layers=2, n_heads=4, att_context_left=16, subsampling_channels=16)
 

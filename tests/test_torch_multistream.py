@@ -19,6 +19,7 @@ from fluidaudio_tpu_torch.asr import streaming_eou as port_eou
 from fluidaudio_tpu_torch.asr import streaming_nemotron as port_nem
 from fluidaudio_tpu_torch.models.conformer_streaming import StreamingConformerConfig
 from fluidaudio_tpu_torch.train import tiny_corpus as tc
+from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
 
 TINY_NEM_ENC = StreamingConformerConfig(d_model=64, n_layers=2, n_heads=4,
                                         subsampling_channels=32, att_context_left=16)

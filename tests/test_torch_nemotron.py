@@ -26,6 +26,7 @@ from fluidaudio_tpu_torch.metrics.wer import wer
 from fluidaudio_tpu_torch.models.conformer_streaming import StreamingConformerConfig
 from fluidaudio_tpu_torch.registry import Repo
 from fluidaudio_tpu_torch.train import tiny_corpus as tc
+from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
 
 CKPT = fx.trained_assets_dir() / "nemotron"
 # the fixture's encoder size (fixtures.nemotron_tiny_enc_cfg)

@@ -35,6 +35,7 @@ from fluidaudio_tpu_torch.train import fixtures as port_fx
 from fluidaudio_tpu_torch.train import tiny_corpus as tc
 from fluidaudio_tpu_torch.utils import weights
 from tests.test_torch_sensevoice import ATOL, REL_L2, held_out, jitter, rel_l2, to_port
+from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
 
 CFG = jax_pf.PARAFORMER_TEST
 

@@ -12,6 +12,7 @@ import importlib
 import pytest
 
 from tests.test_public_api import PUBLIC_API
+from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
 
 # the port's counterpart of every ported entry of PUBLIC_API
 PORTED = [
@@ -47,6 +48,14 @@ PORTED = [
     ("fluidaudio_tpu_torch.ops.tdt_decode", "tdt_greedy_decode"),
     ("fluidaudio_tpu_torch.ops.mel", "MelFrontend"),
     ("fluidaudio_tpu_torch.metrics.wer", "wer"),
+    ("fluidaudio_tpu_torch.diarizer.manager", "DiarizerManager"),
+    ("fluidaudio_tpu_torch.diarizer.offline.manager", "OfflineDiarizerManager"),
+    ("fluidaudio_tpu_torch.diarizer.offline.types", "OfflineDiarizerConfig"),
+    ("fluidaudio_tpu_torch.diarizer.sortformer", "SortformerDiarizer"),
+    ("fluidaudio_tpu_torch.diarizer.timeline", "DiarizerTimeline"),
+    ("fluidaudio_tpu_torch.diarizer.speaker_manager", "SpeakerManager"),
+    ("fluidaudio_tpu_torch.diarizer.speaker_id", "SpeakerVerifier"),
+    ("fluidaudio_tpu_torch.diarizer.metrics", "compute_der"),
 ]
 
 
@@ -69,6 +78,8 @@ NOT_PORTED = {
     "registry": set(),
     "vad": set(),
     "asr.custom_vocab": set(),
+    "diarizer": set(),
+    "diarizer.offline": set(),
 }
 
 

@@ -9,7 +9,7 @@ import pytest
 
 from fluidaudio_tpu.asr.punctuation_commit import PunctuationCommitLayer as JaxLayer
 from fluidaudio_tpu_torch.asr.punctuation_commit import PunctuationCommitLayer as PortLayer
-from tests.test_torch_custom_vocab import jax_cases
+from tests.test_torch_custom_vocab import jax_cases, one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("case", jax_cases("test_punctuation_commit.py"))

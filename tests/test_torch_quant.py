@@ -32,6 +32,7 @@ from fluidaudio_tpu_torch.ops import int8_matmul as kmod
 from fluidaudio_tpu_torch.ops import quant
 from fluidaudio_tpu_torch.train import tiny_corpus as tc
 from fluidaudio_tpu_torch.utils.weights import from_jax_params, load_state
+from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
 
 CKPT = trained_assets_dir() / "asr"
 TINY = dict(d_model=64, n_layers=2, n_heads=4, subsampling_channels=32, dtype="float32")

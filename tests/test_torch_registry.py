@@ -50,7 +50,7 @@ from fluidaudio_tpu_torch.native import flac
 from fluidaudio_tpu_torch.registry import ModelRegistry, OfflineError, Repo
 from fluidaudio_tpu_torch.train import fixtures as port_fx
 from fluidaudio_tpu_torch.train import tiny_corpus as tc
-from tests.test_torch_custom_vocab import jax_cases, jax_fixtures
+from tests.test_torch_custom_vocab import jax_cases, jax_fixtures, one_torch_thread  # noqa: F401
 
 FIXTURES = jax_fx.trained_assets_dir()
 

@@ -33,7 +33,7 @@ from fluidaudio_tpu_torch.models import sensevoice as port_sv
 from fluidaudio_tpu_torch.train import fixtures as port_fx
 from fluidaudio_tpu_torch.train import tiny_corpus as tc
 from fluidaudio_tpu_torch.utils import weights
-from tests.test_torch_custom_vocab import jax_cases
+from tests.test_torch_custom_vocab import jax_cases, one_torch_thread  # noqa: F401
 
 ATOL = 1e-5  # elementwise outputs (positions), f32
 REL_L2 = 1e-5  # block and encoder outputs (560-wide f32 contractions), f32

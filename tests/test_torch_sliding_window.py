@@ -32,7 +32,7 @@ from fluidaudio_tpu_torch.asr.sliding_window import (
 from fluidaudio_tpu_torch.asr.sliding_window import logger as sliding_logger
 from fluidaudio_tpu_torch.models.zoo import AsrModels
 from fluidaudio_tpu_torch.train import tiny_corpus as tc
-from tests.test_torch_custom_vocab import jax_cases
+from tests.test_torch_custom_vocab import jax_cases, one_torch_thread  # noqa: F401
 
 CKPT = trained_assets_dir() / "asr"
 WINDOW = dict(chunk_seconds=2.0, left_context_seconds=3.0, right_context_seconds=1.0)

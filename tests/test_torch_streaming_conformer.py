@@ -20,6 +20,7 @@ from fluidaudio_tpu.models import conformer_streaming as jax_cs
 from fluidaudio_tpu_torch.asr import streaming_nemotron as port_nemotron
 from fluidaudio_tpu_torch.models import conformer_streaming as port
 from fluidaudio_tpu_torch.utils.weights import from_jax_params, load_state
+from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
 
 # the size of tests/test_streaming_conformer.py
 SMALL = dict(n_mels=16, d_model=32, n_layers=2, n_heads=4, att_context_left=16,

@@ -37,6 +37,7 @@ from fluidaudio_tpu_torch.ops import tdt_decode as port_tdt
 from fluidaudio_tpu_torch.ops.mel import MelConfig, MelFrontend
 from fluidaudio_tpu_torch.train import tiny_corpus as tc
 from fluidaudio_tpu_torch.utils.weights import from_jax_params, load_state
+from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
 
 CKPT = fx.trained_assets_dir() / "eou"
 WER_GATE = 0.02

@@ -27,7 +27,7 @@ from fluidaudio_tpu_torch.models.zoo import AsrModels
 from fluidaudio_tpu_torch.registry import FAMILIES, Repo, required_models
 from fluidaudio_tpu_torch.registry import model_names as port_names
 from fluidaudio_tpu.registry import model_names as jax_names
-from tests.test_torch_custom_vocab import jax_cases
+from tests.test_torch_custom_vocab import jax_cases, one_torch_thread  # noqa: F401
 
 
 def test_catalog_equals_jax_key_by_key():

@@ -24,6 +24,7 @@ from fluidaudio_tpu.ops import tdt_decode as jax_tdt
 from fluidaudio_tpu_torch.models.predictor import PredictorConfig, RnntJoint, RnntPredictor
 from fluidaudio_tpu_torch.ops import tdt_decode as port
 from fluidaudio_tpu_torch.utils.weights import from_jax_params, load_state
+from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
 
 VOCAB = 16
 PCFG = dict(vocab_size=VOCAB, pred_hidden=8, n_layers=1, enc_hidden=12, joint_hidden=8)

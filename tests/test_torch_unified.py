@@ -25,7 +25,7 @@ from fluidaudio_tpu_torch.asr.unified import (
     UnifiedStreamingConfig,
 )
 from fluidaudio_tpu_torch.models.zoo import AsrModels
-from tests.test_torch_custom_vocab import jax_cases
+from tests.test_torch_custom_vocab import jax_cases, one_torch_thread  # noqa: F401
 from tests.test_torch_sliding_window import CKPT, assert_same_stream, stream, utterance
 
 STREAMING = dict(chunk_seconds=2.0, left_context_seconds=3.0, right_context_seconds=1.0)

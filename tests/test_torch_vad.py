@@ -34,7 +34,7 @@ from fluidaudio_tpu_torch.models import silero_vad as port_sv
 from fluidaudio_tpu_torch.train import fixtures as port_fx
 from fluidaudio_tpu_torch.utils import weights
 from fluidaudio_tpu_torch.vad import VadManager, VadSegmentationConfig
-from tests.test_torch_custom_vocab import jax_cases, jax_fixtures
+from tests.test_torch_custom_vocab import jax_cases, jax_fixtures, one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 CKPT = jax_fx.trained_assets_dir() / "vad"

@@ -2,8 +2,11 @@
 
 Every key of the trained `test-tiny` checkpoints, of the streaming `eou`
 and `nemotron` fixtures (encoder, predictor, joint) and of the `sensevoice`,
-`paraformer`, `cohere` and `vad` fixtures is consumed by the port's modules, each lands in the torch layout, and a missing, extra or mis-shaped
-key raises. The port's package must import no JAX.
+`paraformer`, `cohere`, `vad`, `offline` (segmentation, embedding) and
+`sortformer` fixtures is consumed by the port's modules, each lands in the
+torch layout, and a missing, extra or mis-shaped key raises. The flax
+DenseGeneral attention kernels map by their own rule, and a 3-D Conv1d
+kernel beside them keeps the Conv1d layout. The port's package must import no JAX.
 """
 
 import subprocess
@@ -20,12 +23,16 @@ from fluidaudio_tpu_torch.models.cohere_asr import CohereDecoderStep, CohereEnco
 from fluidaudio_tpu_torch.models.conformer import ConformerEncoder
 from fluidaudio_tpu_torch.models.conformer_streaming import StreamingConformerEncoder
 from fluidaudio_tpu_torch.models.paraformer import PARAFORMER_TEST, Paraformer
+from fluidaudio_tpu_torch.models.pyannote_seg import PyannoteSegmentation
+from fluidaudio_tpu_torch.models.sortformer import SORTFORMER_TEST, SortformerModel
+from fluidaudio_tpu_torch.models.wespeaker import WeSpeakerEmbedder
 from fluidaudio_tpu_torch.models.predictor import PredictorConfig, RnntJoint, RnntPredictor
 from fluidaudio_tpu_torch.models.sensevoice import SENSEVOICE_TEST, SenseVoiceEncoder
 from fluidaudio_tpu_torch.models.silero_vad import SileroVadV5
-from fluidaudio_tpu_torch.train.fixtures import cohere_tiny_config
+from fluidaudio_tpu_torch.train.fixtures import cohere_tiny_config, offline_tiny_configs
 from fluidaudio_tpu_torch.models.zoo import ASR_VERSIONS
 from fluidaudio_tpu_torch.utils import weights
+from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
 
 PORT_DIR = Path(weights.__file__).resolve().parents[1]
 SPEC = ASR_VERSIONS["test-tiny"]
@@ -57,6 +64,12 @@ FAMILY_PARTS = {
     "cohere/encoder": lambda: CohereEncoder(cohere_tiny_config()),
     "cohere/decoder": lambda: CohereDecoderStep(cohere_tiny_config()),
     "vad/silero_vad": lambda: SileroVadV5(),
+    # the diarizers: flax DenseGeneral attention (`att0/query/kernel`
+    # [d, H, Dh], `att0/out/kernel` [H, Dh, d]) beside the [251, 1, C] stem
+    # conv, the NHWC ResNet trunk, and Sortformer's encoder + transformer
+    "offline/segmentation": lambda: PyannoteSegmentation(offline_tiny_configs()[0]),
+    "offline/embedding": lambda: WeSpeakerEmbedder(offline_tiny_configs()[1]),
+    "sortformer/encoder": lambda: SortformerModel(SORTFORMER_TEST),
 }
 ALL_PARTS = {**PARTS, **STREAMING_PARTS, **FAMILY_PARTS}  # test-tiny parts are under asr/
 
@@ -107,6 +120,49 @@ def test_layouts_of_dense_conv_and_kept_leaves():
     assert set(weights.from_jax_params(flat)) == set(state)
 
 
+def test_dense_general_attention_layout():
+    """flax DenseGeneral q/k/v `kernel [d, H, Dh]` -> torch Linear `weight
+    [H*Dh, d]` (bias [H, Dh] -> [H*Dh]), and `out` `kernel [H, Dh, d]` ->
+    `weight [d, H*Dh]`: a Linear with them computes the flax einsums."""
+    rs = np.random.RandomState(1)
+    d, H, Dh = 6, 2, 3
+    tree = {"params": {"att": {
+        "query": {"kernel": rs.randn(d, H, Dh), "bias": rs.randn(H, Dh)},
+        "out": {"kernel": rs.randn(H, Dh, d), "bias": rs.randn(d)},
+    }}}
+    state = weights.from_jax_params(tree)
+    p = tree["params"]["att"]
+    assert state["att.query.weight"].shape == (H * Dh, d)
+    assert state["att.query.bias"].shape == (H * Dh,)
+    assert state["att.out.weight"].shape == (d, H * Dh)
+    x = rs.randn(4, d)
+    want_q = np.einsum("nd,dhk->nhk", x, p["query"]["kernel"]) + p["query"]["bias"]
+    got_q = x @ state["att.query.weight"].T + state["att.query.bias"]
+    np.testing.assert_allclose(got_q, want_q.reshape(4, H * Dh), rtol=1e-12)
+    a = rs.randn(4, H, Dh)
+    want_o = np.einsum("nhk,hkd->nd", a, p["out"]["kernel"]) + p["out"]["bias"]
+    got_o = a.reshape(4, H * Dh) @ state["att.out.weight"].T + state["att.out.bias"]
+    np.testing.assert_allclose(got_o, want_o, rtol=1e-12)
+
+
+def test_conv1d_kernel_keeps_its_layout_beside_dense_general():
+    """A 3-D kernel under any other name (the segmentation stem [251, 1, C],
+    a conv named like a Dense elsewhere) still maps as a Conv1d,
+    [k, in, out] -> [out, in, k], even when its shape would fit the
+    DenseGeneral reshape."""
+    rs = np.random.RandomState(2)
+    tree = {"params": {
+        "stem": {"kernel": rs.randn(251, 1, 16)},
+        "conv0": {"kernel": rs.randn(5, 4, 8)},
+        "proj": {"kernel": rs.randn(8, 2, 4)},
+    }}
+    state = weights.from_jax_params(tree)
+    p = tree["params"]
+    for name in ("stem", "conv0", "proj"):
+        np.testing.assert_array_equal(state[f"{name}.weight"],
+                                      p[name]["kernel"].transpose(2, 1, 0))
+
+
 @pytest.mark.parametrize("fault", ["missing", "extra", "shape"])
 def test_bad_checkpoint_raises(fault):
     module = RnntJoint(SPEC.predictor)
@@ -146,7 +202,9 @@ def test_importing_the_port_leaves_no_jax_in_sys_modules():
             "'fluidaudio_tpu_torch.asr.sensevoice_manager',"
             "'fluidaudio_tpu_torch.asr.paraformer_manager',"
             "'fluidaudio_tpu_torch.asr.cohere_manager', 'fluidaudio_tpu_torch.vad.manager',"
-            "'fluidaudio_tpu_torch.vad.segmentation', 'fluidaudio_tpu_torch.models.silero_vad'));"
+            "'fluidaudio_tpu_torch.vad.segmentation', 'fluidaudio_tpu_torch.models.silero_vad',"
+            "'fluidaudio_tpu_torch.diarizer.sortformer', 'fluidaudio_tpu_torch.diarizer.offline.vbx',"
+            "'fluidaudio_tpu_torch.native.fastcluster'));"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'jaxlib', 'fluidaudio_tpu')]; print(bad); sys.exit(bool(bad))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=PORT_DIR.parent,
