@@ -10,8 +10,9 @@ line is not printed:
 
   1. device: the card's name and power limit (nvidia-smi), the time to
      build both kernels from `fluidaudio_tpu_torch/csrc/` (one nvcc each, in
-     parallel) and the FLAC decoder and the fastcluster library from
-     `native/{flac,fastcluster}/` (the host C++ compiler, beside them), and
+     parallel) and the FLAC decoder, the fastcluster library and the ITN
+     engine from `native/{flac,fastcluster,itn}/` (the host C++ compiler,
+     beside them), and
      what ptxas reports of the attention kernel and the int8 GEMM
      (registers, spills, shared memory);
   2. the rel-pos attention kernel against its plain PyTorch version on the
@@ -132,10 +133,31 @@ line is not printed:
      PipelineTimings stages; then full width at reduced depth in f32 on the
      card against the CPU (segmentation logits of both nets, ResNet
      embeddings, Sortformer predictions within 1e-4 relative L2, binarised
-     predictions equal away from the threshold).
+     predictions equal away from the threshold);
+ 17. LS-EEND, ITN and Kokoro English TTS (no kernel of the port is on
+     them: every count reads 0): the trained `lseend` fixture on the card
+     against the CPU (DER, `process` segments and a session of ragged 1 s
+     pushes equal) and the trained `tts` fixture (phonemes and frame counts
+     equal; with the same source draws, and the generator reading the CPU
+     run's source STFTs, durations, F0 and N, the audio program and the
+     samples within 1e-4 relative L2, end to end the samples within 1e-1
+     (the test's tolerance); the tones of words 0, 7 and 15; two
+     `synthesize` calls `array_equal`); the ITN vectors of tests/test_native.py
+     (parsed, not imported) against their expected strings; at full width
+     with seeded random weights drawn on the card: `LSEENDDiarizer()`
+     (4 x 256, 23 mels, context 7) on 300 s at 500 and 100 ms steps and a
+     session of ragged 1 s pushes, and Kokoro-82M (`KokoroConfig()`, its
+     `duration_proj` bias set so that durations average 2-3 frames per
+     token) on ~64, ~256 and 510 phoneme tokens and an English text of
+     two or more chunks, two calls on it `array_equal`; timing (card name
+     and power limit on every line): ms per request and per step or push,
+     RTFx, launches, device busy, idle share, peak memory and
+     `KokoroStageTimings`; then Kokoro at full width with ALBERT cut to 2
+     layers, card against CPU with the same draws (durations, d, t_en and
+     audio within 1e-4 relative L2).
 
 The line before the last is the kernel record (JSON, with each kernel's
-launches on its main path and on each path of phases 11-16, the plain
+launches on its main path and on each path of phases 11-17, the plain
 attention's calls on the paths that take it, bound and times); the last
 line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -301,7 +323,7 @@ def set_int8_matmul(encoder, fn) -> None:
 def phase_device(attn, i8) -> tuple[str, str]:
     from concurrent.futures import ThreadPoolExecutor
 
-    from fluidaudio_tpu_torch.native import cxx, fastcluster, flac
+    from fluidaudio_tpu_torch.native import cxx, fastcluster, flac, itn
     from fluidaudio_tpu_torch.ops import build
 
     smi = subprocess.run(
@@ -309,12 +331,14 @@ def phase_device(attn, i8) -> tuple[str, str]:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
-    with ThreadPoolExecutor(2) as pool:  # the host C++ builds beside the two nvcc
+    with ThreadPoolExecutor(3) as pool:  # the host C++ builds beside the two nvcc
         flac_build = pool.submit(flac.build_library)
         fc_build = pool.submit(fastcluster.build_library)
+        itn_build = pool.submit(itn.build_library)
         built = build.build(attn.KERNEL_SOURCE, i8.KERNEL_SOURCE)
         flac_lib, flac_s = flac_build.result()
         fc_lib, fc_s = fc_build.result()
+        itn_lib, itn_s = itn_build.result()
     compiler = subprocess.run([cxx.compiler(), "--version"], capture_output=True, text=True,
                               timeout=60, check=True).stdout.splitlines()[0]
     attn_lib = attn.load_library()
@@ -324,7 +348,7 @@ def phase_device(attn, i8) -> tuple[str, str]:
     print(f"phase 1 device: {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| kernel builds (parallel nvcc): {builds} | host C++ ({compiler}, "
           f"{' '.join(cxx.CXX_FLAGS)}): FLAC decoder {flac_lib.name} {flac_s:.2f} s, "
-          f"fastcluster {fc_lib.name} {fc_s:.2f} s")
+          f"fastcluster {fc_lib.name} {fc_s:.2f} s, ITN {itn_lib.name} {itn_s:.2f} s")
     report = ptxas_report(built[attn.KERNEL_SOURCE.name][1], "relpos_attention_wgmma")
     print(f"phase 1 relpos_attention_wgmma (nvcc -Xptxas -v): "
           f"{report or 'built before this run'} | dynamic shared memory "
@@ -1941,13 +1965,15 @@ def reduced_depth_parity(device) -> str:
 
 
 def time_request(smi: str, label: str, fn, audio_s: float, runs: int = 5,
-                 host_ops: bool = True) -> str:
-    """Host wall per request (median after one warm-up), RTFx, launches,
-    device busy and idle share (profiler) and peak memory."""
+                 host_ops: bool = True, per: tuple[int, str] | None = None) -> str:
+    """Host wall per request (median after one warm-up; with `per` = (n,
+    unit) also per unit), RTFx, launches, device busy and idle share
+    (profiler) and peak memory."""
     ms = host_ms(fn, runs=runs)
     launches, busy = profile_calls(fn, 1, host_ops)
     _, peak = peak_gib(fn)
-    line = (f"timing [{smi}] {label}: median {ms:.3f} ms per request (host wall), RTFx "
+    unit = f" ({ms / per[0]:.4f} ms per {per[1]}, {per[0]} of them)" if per else ""
+    line = (f"timing [{smi}] {label}: median {ms:.3f} ms per request (host wall){unit}, RTFx "
             f"{audio_s / (ms / 1e3):.1f}, {launches:.0f} kernel launches and {busy:.3f} ms device "
             f"busy per request (profiler), idle share {max(0.0, 1 - busy / ms):.3f}, peak "
             f"{peak:.2f} GiB")
@@ -2377,6 +2403,390 @@ def phase_diarizers(attn, i8, device, smi: str) -> tuple[dict, float, list[str]]
           f"{diarizer_reduced_depth_parity(device)}", flush=True)
     return paths, err, lines
 
+# ------------------------------------------------------------------ phase 17
+TTS_CARD_TOL = 1e-4  # full width, reduced depth, f32: card against CPU
+# the trained `tts` fixture end to end, card against CPU with the same draws:
+# tests/test_torch_kokoro.py's SAMPLES_REL (the harmonic source's phase
+# follows the F0 track's last ulps; the peak normalisation makes a gain of it)
+TTS_SAMPLES_TOL = 1e-1
+LSEEND_SECONDS = 300.0
+KOKORO_TOKENS = (64, 256, 510)
+KOKORO_FRAMES_PER_TOKEN = (2.0, 3.0)  # what random weights are calibrated to
+
+
+def itn_cases() -> list[tuple[str, str, str]]:
+    """(language, spoken, written) of every ITN vector of tests/test_native.py,
+    read from the test file's parametrize lists (the file itself imports
+    JAX, so it is parsed, not imported)."""
+    import ast
+
+    tree = ast.parse((REPO / "tests" / "test_native.py").read_text())
+    cases = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.FunctionDef) or node.name not in (
+                "test_itn_english", "test_normalize", "test_vectors"):
+            continue
+        for deco in node.decorator_list:
+            if isinstance(deco, ast.Call) and getattr(deco.func, "attr", "") == "parametrize":
+                names = [n.strip() for n in ast.literal_eval(deco.args[0]).split(",")]
+                for row in ast.literal_eval(deco.args[1]):
+                    bound = dict(zip(names, row))
+                    cases.append((bound.get("lang", "en"), bound.get("spoken") or bound["src"],
+                                  bound.get("written") or bound["want"]))
+    return cases
+
+
+def lseend_fixture_runs(device) -> dict:
+    """The trained `lseend` fixture on `device`: `eval_lseend_fixture`'s DER,
+    `process` segments, and a streaming session (ragged 1 s pushes, then
+    `finish_stream`)."""
+    from fluidaudio_tpu_torch.diarizer.lseend import LSEENDDiarizer
+    from fluidaudio_tpu_torch.models.lseend import LSEEND_TEST
+    from fluidaudio_tpu_torch.train import fixtures as fx
+    from fluidaudio_tpu_torch.train import tiny_corpus as tc
+
+    def segs(result):
+        return [(s.speaker_id, round(s.start_time, 6), round(s.end_time, 6))
+                for s in result.segments]
+
+    diar = LSEENDDiarizer(LSEEND_TEST, step_ms=500, checkpoint_dir=TRAINED / "lseend",
+                          device=device)
+    mix = tc.diarizer_mixture(np.random.RandomState(8642), 60.0, overlap_prob=0.0)[0]
+    stream_mix = tc.diarizer_mixture(np.random.RandomState(123), 30.0, overlap_prob=0.0)[0]
+    diar.reset_session()
+    stream = [segs(diar.process_stream(stream_mix[o : o + 16_000]))
+              for o in range(0, stream_mix.size, 16_000)]
+    stream.append(segs(diar.finish_stream()))
+    return {"der": fx.eval_lseend_fixture(device=device), "process": segs(diar.process(mix)),
+            "stream": stream}
+
+
+def tts_fixture_runs(device, draws, spectra=None) -> dict:
+    """The trained `tts` fixture on `device` with the given source draws
+    (made on the CPU): per text its phonemes, durations, frame count, F0 and
+    N tracks, the audio program's output and the samples. The harmonic
+    source's STFTs are recorded into `spectra["out"]`, or, with
+    `spectra["in"]`, replaced by those (the generator then reads the same
+    source spectra on both devices: the source's phase integrates the F0
+    track's last-ulp differences, which the STFT phases of its weak bins
+    amplify)."""
+    from fluidaudio_tpu_torch.models import kokoro as kk
+    from fluidaudio_tpu_torch.train import fixtures as fx
+    from fluidaudio_tpu_torch.train import tiny_corpus as tc
+
+    mgr = fx.load_tts_manager(device=device)
+    rand_ini, noise = (d.to(device) for d in draws)
+    forward, stft = kk.KokoroAudioProgram.forward, kk.stft_20
+    given = iter(spectra.get("in", ()))
+
+    def source_stft(x, *a):
+        if "in" in spectra:
+            return tuple(t.to(x.device) for t in next(given))
+        mag, ph = stft(x, *a)
+        spectra.setdefault("out", []).append((mag.cpu(), ph.cpu()))
+        return mag, ph
+
+    out = {}
+    try:
+        kk.KokoroAudioProgram.forward = lambda self, *a, generator=None, **k: forward(
+            self, *a, rand_ini=rand_ini, noise=noise, **k)
+        kk.stft_20 = source_stft
+        for ids in ([3, 7, 12], [15, 0], [5, 9, 2, 14, 1, 8]):
+            text = tc.transcript_text(np.asarray(ids))
+            phonemes = mgr.phonemes_for(text)
+            style_s, timbre = mgr.style_for(phonemes, "af_test")
+            dur, d, t_en = mgr.text_durations(mgr.encode_phonemes(phonemes), style_s)
+            frame_idx, frames = kk.expand_durations(dur, mgr.cfg.max_frames)
+            program, f0, n_ = mgr.audio_program(
+                d, t_en, torch.as_tensor(frame_idx[None, :160].astype(np.int64)).to(device),
+                torch.tensor([frames], dtype=torch.int32, device=device), style_s, timbre,
+                with_prosody=True)
+            out[text] = (phonemes, dur, frames, f0.cpu().numpy(), n_.cpu().numpy(),
+                         program.cpu().numpy(), mgr.synthesize(text).samples)
+    finally:
+        kk.KokoroAudioProgram.forward, kk.stft_20 = forward, stft
+    return out
+
+
+def phase_fixtures_17(attn, i8, device) -> tuple[dict, str]:
+    """The trained `lseend` and `tts` fixtures on the card against the port on
+    the CPU, the tonal check and two equal synthesize calls on the card."""
+    from fluidaudio_tpu_torch.models.kokoro import HARMONICS
+    from fluidaudio_tpu_torch.train import fixtures as fx
+    from fluidaudio_tpu_torch.train import tiny_corpus as tc
+
+    paths, parts = {}, []
+    card, c = counted(attn, i8, lambda: lseend_fixture_runs(device))
+    cpu = lseend_fixture_runs("cpu")
+    check(card == cpu, "lseend fixture on the card: DER, segments or stream differ from the CPU")
+    check(card["der"] <= fx.LSEEND_DER_GATE, f"lseend fixture DER {card['der']} over the gate")
+    paths["lseend fixture (phase 17)"] = c
+    parts.append(f"lseend: DER {card['der']:.4f}, {len(card['process'])} segments, stream "
+                 f"{sum(map(len, card['stream']))} segments over {len(card['stream'])} pushes "
+                 f"(= CPU)")
+
+    gen = torch.Generator().manual_seed(17)
+    draws = (torch.rand((1, HARMONICS), generator=gen),
+             torch.randn((1, 2 * 160 * 300, HARMONICS), generator=gen))
+    spectra = {}
+    cpu_tts = tts_fixture_runs("cpu", draws, spectra)
+    card_tts, c = counted(attn, i8, lambda: tts_fixture_runs(device, draws,
+                                                              {"in": spectra["out"]}))
+    errs = {k: 0.0 for k in ("F0, N", "program", "samples")}
+    for text, (ph, dur, frames, f0, n_, program, samples) in card_tts.items():
+        c_ph, c_dur, c_frames, c_f0, c_n, c_program, c_samples = cpu_tts[text]
+        check(ph == c_ph and frames == c_frames and samples.shape == c_samples.shape,
+              f"tts fixture {text!r}: phonemes or frame count differ from the CPU")
+        rel = lambda x, y: rel_l2(torch.as_tensor(x), torch.as_tensor(y))  # noqa: E731
+        check(rel(dur, c_dur) <= FAMILY_CARD_TOL, f"tts fixture {text!r}: durations differ")
+        for key, e in (("F0, N", max(rel(f0, c_f0), rel(n_, c_n))),
+                       ("program", rel(program, c_program)),
+                       ("samples", rel(samples, c_samples))):
+            errs[key] = max(errs[key], e)
+    check(all(e <= FAMILY_CARD_TOL for e in errs.values()), f"tts fixture card vs CPU: {errs}")
+    # end to end (the card's own source STFTs): the test's tolerance on the
+    # samples; at one gain (the peak normalisation's) for information
+    free, c3 = counted(attn, i8, lambda: tts_fixture_runs(device, draws, {}))
+    end = {"samples": 0.0, "at one gain": 0.0}
+    for text, run in free.items():
+        got, want = torch.as_tensor(run[-1], dtype=torch.float64), torch.as_tensor(
+            cpu_tts[text][-1], dtype=torch.float64)
+        gain = float(got @ want / (got @ got))
+        end = {"samples": max(end["samples"], rel_l2(got, want)),
+               "at one gain": max(end["at one gain"], rel_l2(gain * got, want))}
+    check(end["samples"] <= TTS_SAMPLES_TOL, f"tts fixture end to end card vs CPU: {end}")
+    mgr = fx.load_tts_manager(device=device)
+
+    def tonal():
+        peaks = []
+        for w in (0, 7, 15):
+            x = mgr.synthesize(tc.word_text(w)).samples
+            body = x[int(0.05 * 24000): int(0.28 * 24000)]
+            spec = np.abs(np.fft.rfft(body * np.hanning(body.size)))
+            peaks.append((np.argmax(spec) * 24000 / body.size, tc.word_freq(w)))
+        return peaks
+
+    peaks, c2 = counted(attn, i8, tonal)
+    check(all(abs(f - want) < 40.0 for f, want in peaks), f"tts fixture tones {peaks}")
+    text = tc.transcript_text(np.array([4, 10, 6]))
+    check(np.array_equal(mgr.synthesize(text).samples, mgr.synthesize(text).samples),
+          "tts fixture: two synthesize calls on one text differ on the card")
+    paths["tts fixture (phase 17)"] = {k: c[k] + c2[k] + c3[k] for k in c}
+    parts.append(f"tts (the generator on the CPU's source STFTs): phonemes and frame counts "
+                 f"equal; max rel L2 (tol {FAMILY_CARD_TOL}) "
+                 + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                 + f"; end to end samples {end['samples']:.2e} (tol {TTS_SAMPLES_TOL}), at one "
+                 f"gain {end['at one gain']:.2e}"
+                 + f"; tones {[round(f, 1) for f, _ in peaks]} Hz (want "
+                 f"{[round(w, 1) for _, w in peaks]}); two calls array_equal")
+    return paths, " | ".join(parts)
+
+
+def calibrate_duration_bias(mgr, phonemes: str) -> float:
+    """Bisect the bias of `duration_proj` (all 50 outputs alike) until the
+    text program's durations average 2-3 frames per token on `phonemes`, as
+    speech's do; random weights give ~25. Sets it in place -> frames per
+    token reached."""
+    bias = mgr.text_program.duration_proj.bias
+    ids = mgr.encode_phonemes(phonemes)
+    style_s, _ = mgr.style_for(phonemes, mgr.default_voice)
+    lo, hi, fpt = -20.0, 10.0, 0.0
+    for _ in range(30):
+        mid = 0.5 * (lo + hi)
+        with torch.no_grad():
+            bias.fill_(mid)
+        dur, _, _ = mgr.text_durations(ids, style_s)
+        fpt = float(np.maximum(np.rint(dur), 1).mean())
+        if KOKORO_FRAMES_PER_TOKEN[0] <= fpt <= KOKORO_FRAMES_PER_TOKEN[1]:
+            break
+        lo, hi = (lo, mid) if fpt > KOKORO_FRAMES_PER_TOKEN[1] else (mid, hi)
+    return fpt
+
+
+def phoneme_text(mgr, rs, n_tokens: int) -> str:
+    """Words of the seed lexicon's IPA, space-joined, cut to `n_tokens`
+    vocabulary tokens."""
+    from fluidaudio_tpu_torch.tts.g2p import _SEED_LEXICON
+
+    words = list(_SEED_LEXICON.values())
+    out = ""
+    while len(mgr.encode_phonemes(out)) < n_tokens:
+        out += words[rs.randint(len(words))] + " "
+    return out[:n_tokens].strip()
+
+
+def time_synthesis(smi: str, label: str, fn, runs: int = 2) -> str:
+    """`time_request` with the audio's length, then the KokoroStageTimings
+    of the last call."""
+    result = fn()
+    line = time_request(smi, label, fn, result.duration, runs=runs, host_ops=False)
+    t = result.timings
+    print(f"timing [{smi}] {label}: KokoroStageTimings g2p {t.g2p_seconds * 1e3:.3f} ms, text "
+          f"{t.text_seconds * 1e3:.3f} ms, audio {t.audio_seconds * 1e3:.3f} ms, post "
+          f"{t.post_seconds * 1e3:.3f} ms; {result.duration:.3f} s of audio", flush=True)
+    return line
+
+
+def kokoro_reduced_depth_parity(device) -> str:
+    """Full width at reduced depth (`albert_layers` 2), f32, seeded random
+    weights drawn on the card and copied to the CPU, the same source draws:
+    durations, d, t_en and the audio program's output, card against CPU."""
+    from dataclasses import replace
+
+    from fluidaudio_tpu_torch.models import kokoro as kk
+    from fluidaudio_tpu_torch.tts.kokoro_manager import KokoroManager
+
+    # a 100-frame grid keeps the CPU's side short; every width stays full
+    cfg = replace(kk.KokoroConfig(), albert_layers=2, frame_buckets=(100,))
+    empty = REPO / "no-checkpoint"
+    card = KokoroManager(config=cfg, checkpoint_dir=empty, device=device)
+    calibrate_duration_bias(card, phoneme_text(card, np.random.RandomState(1), 40))
+    cpu = KokoroManager(config=cfg, checkpoint_dir=empty, device="cpu")
+    for prog in ("text_program", "audio_program"):
+        getattr(cpu, prog).load_state_dict(
+            {k: v.cpu() for k, v in getattr(card, prog).state_dict().items()})
+    phonemes = phoneme_text(card, np.random.RandomState(2), 30)
+    ids = card.encode_phonemes(phonemes)
+    gen = torch.Generator().manual_seed(3)
+    results = {}
+    for key, mgr in (("card", card), ("cpu", cpu)):
+        style_s, timbre = mgr.style_for(phonemes, mgr.default_voice)
+        dur, d, t_en = mgr.text_durations(ids, style_s)
+        frame_idx, frames = kk.expand_durations(dur, cfg.max_frames)
+        bucket = mgr._bucket(frames, mgr.frame_buckets())
+        if "draws" not in results:
+            results["draws"] = (torch.rand((1, kk.HARMONICS), generator=gen),
+                                torch.randn((1, 2 * bucket * 300, kk.HARMONICS), generator=gen))
+        rand_ini, noise = (x.to(mgr.device) for x in results["draws"])
+        audio = mgr.audio_program(
+            d, t_en, torch.as_tensor(frame_idx[None, :bucket].astype(np.int64)).to(mgr.device),
+            torch.tensor([frames], dtype=torch.int32, device=mgr.device), style_s, timbre,
+            rand_ini=rand_ini, noise=noise)
+        results[key] = (dur, d.cpu().numpy(), t_en.cpu().numpy(), frames, audio.cpu().numpy())
+    a, b = results["card"], results["cpu"]
+    errs = {k: rel_l2(torch.as_tensor(a[i]), torch.as_tensor(b[i]))
+            for i, k in ((0, "durations"), (1, "d"), (2, "t_en"), (4, "audio"))}
+    check(a[3] == b[3] and all(e <= TTS_CARD_TOL for e in errs.values()),
+          f"kokoro reduced depth card vs CPU: frames {a[3]}/{b[3]}, rel L2 {errs}")
+    return (f"Kokoro full width, ALBERT 2 layers, {len(ids)} tokens, {a[3]} frames "
+            f"(grid {cfg.frame_buckets[0]}): "
+            + ", ".join(f"{k} rel L2 {v:.2e}" for k, v in errs.items()))
+
+
+def phase_tts_lseend_itn(attn, i8, device, smi: str) -> tuple[dict, list[str]]:
+    """Phase 17: the trained `lseend` and `tts` fixtures on the card against
+    the CPU; the ITN vectors; LS-EEND (LSEEND_BASE) and Kokoro-82M
+    (KokoroConfig()) at full width with seeded random weights drawn on the
+    card, each path counted (no kernel of the port is on them) and timed;
+    Kokoro at full width, reduced depth, card against CPU. -> (launches per
+    path, timing lines)."""
+    from fluidaudio_tpu_torch.diarizer.lseend import LSEENDDiarizer
+    from fluidaudio_tpu_torch.itn import TextNormalizer
+    from fluidaudio_tpu_torch.models.kokoro import MAX_TOKENS
+    from fluidaudio_tpu_torch.train import tiny_corpus as tc
+    from fluidaudio_tpu_torch.tts.kokoro_manager import KokoroManager
+    from fluidaudio_tpu_torch.tts.phoneme_chunker import chunk_phonemes
+
+    t0, spent = time.perf_counter(), {}
+
+    def lap(what):
+        nonlocal t0
+        spent[what] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    paths, summary = phase_fixtures_17(attn, i8, device)
+    print(f"phase 17 trained fixtures on the card vs the CPU port: {summary} | launches "
+          f"{paths}", flush=True)
+    lap("fixtures")
+
+    tn = TextNormalizer("en")
+    cases = itn_cases()
+    wrong = [(lang, src, want, got) for lang, src, want in cases
+             if (got := tn.normalize(src, lang)) != want]
+    check(len(cases) >= 60 and not wrong, f"ITN: {len(wrong)} of {len(cases)} wrong: {wrong[:3]}")
+    print(f"phase 17 ITN ({tn.version}): {len(cases)} vectors of tests/test_native.py "
+          f"(en, de, fr, es, pt, it, ru...) equal their expected strings", flush=True)
+    lap("ITN")
+
+    def path(label, fn):
+        out, c = counted(attn, i8, fn)
+        check(c["relpos_attention"] == 0 and c["int8_matmul_fused"] == 0
+              and c["relpos_attention_plain calls"] == 0, f"{label}: launches {c}")
+        paths[label] = c
+        return out
+
+    lines = []
+    empty = REPO / "no-checkpoint"  # seeded random weights, drawn on the card
+    audio = tc.diarizer_mixture(np.random.RandomState(300), LSEEND_SECONDS, overlap_prob=0.1)[0]
+    for step_ms in (500, 100):
+        diar = LSEENDDiarizer(step_ms=step_ms, checkpoint_dir=empty, device=device)
+        label = f"LS-EEND (4 x 256, 23 mels, context 7) process, step {step_ms} ms, " \
+                f"{LSEEND_SECONDS:.0f} s"
+        result = path(label, lambda: diar.process(audio))
+        check(all(0 <= s.start_time < s.end_time <= LSEEND_SECONDS for s in result.segments),
+              f"{label}: a segment outside the recording")
+        steps = int(LSEEND_SECONDS * 10) // diar.step_frames
+        line = time_request(smi, f"{label}: {len(result.segments)} segments, {steps} steps",
+                            lambda: diar.process(audio), LSEEND_SECONDS, runs=3,
+                            host_ops=False, per=(steps, "step"))
+        lines.append(line)
+    diar = LSEENDDiarizer(step_ms=500, checkpoint_dir=empty, device=device)
+
+    def session():
+        diar.reset_session()
+        segs = [diar.process_stream(audio[o : o + 16_000]).segments
+                for o in range(0, audio.size, 16_000)]
+        return segs + [diar.finish_stream().segments]
+
+    label = f"LS-EEND session, 500 ms steps, ragged 1 s pushes, {LSEEND_SECONDS:.0f} s"
+    segs = path(label, session)
+    check(len(segs) == int(LSEEND_SECONDS) + 1, f"{label}: {len(segs)} results")
+    lines.append(time_request(smi, f"{label} (+ finish_stream)", session, LSEEND_SECONDS,
+                              runs=2, host_ops=False, per=(len(segs) - 1, "1 s push")))
+    del diar
+    torch.cuda.empty_cache()
+    lap("LS-EEND")
+
+    mgr = KokoroManager(checkpoint_dir=empty, device=device)  # KokoroConfig(): 82M
+    n_params = sum(p.numel() for prog in (mgr.text_program, mgr.audio_program)
+                   for p in prog.parameters())
+    rs = np.random.RandomState(17)
+    fpt = calibrate_duration_bias(mgr, phoneme_text(mgr, rs, 256))
+    bias = float(mgr.text_program.duration_proj.bias[0].detach())
+    print(f"phase 17 Kokoro-82M ({n_params / 1e6:.1f} M parameters) duration_proj bias "
+          f"{bias:.3f}: {fpt:.2f} frames per token (random weights: ~25)", flush=True)
+    for n in KOKORO_TOKENS:
+        phonemes = phoneme_text(mgr, rs, n)
+        n = len(mgr.encode_phonemes(phonemes))
+        result = path(f"Kokoro-82M synthesize_from_phonemes, {n} tokens",
+                      lambda: mgr.synthesize_from_phonemes(phonemes))
+        check(np.isfinite(result.samples).all() and result.samples.size > 0,
+              f"kokoro {n} tokens: samples")
+        lines.append(time_synthesis(smi, f"Kokoro-82M synthesize_from_phonemes, {n} tokens "
+                                         f"({result.samples.size // 600} frames)",
+                                    lambda: mgr.synthesize_from_phonemes(phonemes)))
+    # English long enough for the manager to cut it into two or more chunks
+    text = " ".join(["the quick brown fox jumps over the lazy dog, and the speech test audio "
+                     "is one two three four five."] * 6)
+    chunks = len(chunk_phonemes(mgr.phonemes_for(text), MAX_TOKENS - 2))
+    check(chunks >= 2, f"kokoro long text: {chunks} chunk(s)")
+    result = path(f"Kokoro-82M synthesize, {len(text.split())} words ({chunks} chunks)",
+                  lambda: mgr.synthesize(text))
+    check(np.isfinite(result.samples).all() and np.abs(result.samples).max() <= 1.0,
+          "kokoro long text: samples")
+    lines.append(time_synthesis(smi, f"Kokoro-82M synthesize, {len(text.split())} words, "
+                                     f"{chunks} chunks", lambda: mgr.synthesize(text)))
+    check(np.array_equal(mgr.synthesize(text).samples, mgr.synthesize(text).samples),
+          "kokoro full width: two synthesize calls on one text differ on the card")
+    del mgr
+    torch.cuda.empty_cache()
+    lap("Kokoro")
+    print(f"phase 17 full width, reduced depth, f32, card vs CPU (tol {TTS_CARD_TOL} rel L2): "
+          f"{kokoro_reduced_depth_parity(device)}", flush=True)
+    lap("parity")
+    print("phase 17 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()), flush=True)
+    return paths, lines
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2423,6 +2833,8 @@ def main() -> int:
     diar_paths, diar_err, _ = phase_diarizers(attn, i8, device, smi)
     paths.update(diar_paths)
     elapsed("phase 16")
+    paths.update(phase_tts_lseend_itn(attn, i8, device, smi)[0])
+    elapsed("phase 17")
     print(json.dumps({"kernels": [{
         "name": "relpos_attention",
         "route": "cuda",

@@ -1,10 +1,12 @@
 from fluidaudio_tpu_torch.metrics.wer import wer, cer, levenshtein, WerBreakdown
+from fluidaudio_tpu_torch.metrics.text_normalizer import normalize_for_scoring
 
 __all__ = [
     "wer",
     "cer",
     "levenshtein",
     "WerBreakdown",
-    # not ported yet: normalize_for_scoring, parse_rttm, write_rttm and the
-    # AMI corpus helpers (metrics/{text_normalizer,rttm,ami_corpus}.py)
+    "normalize_for_scoring",
+    # not ported yet: parse_rttm, write_rttm and the AMI corpus helpers
+    # (metrics/{rttm,ami_corpus}.py)
 ]

@@ -1,14 +1,15 @@
 """Trained fixture evaluations on the port: CTC, SenseVoice, Paraformer,
-Cohere, VAD and the diarizers.
+Cohere, VAD, the diarizers, LS-EEND and Kokoro TTS.
 
 Copies of those parts of `fluidaudio_tpu/train/fixtures.py` (that module
 imports JAX): the same seeds, corpora and gates, run through the port's
 `CtcKeywordSpotter`, `ctc_greedy_decode`, `ctc_beam_search`,
 `ctc_token_rescore`, `SenseVoiceManager`, `ParaformerManager`,
-`CoherePipeline`, `VadManager`, `OfflineDiarizerManager`, `DiarizerManager`
-and `SortformerDiarizer` on `device` (None: the GPU; pass "cpu" to run on
-the CPU). The fixtures themselves are the JAX package's committed npz
-(`fluidaudio_tpu/assets/trained_tiny/`), read as files.
+`CoherePipeline`, `VadManager`, `OfflineDiarizerManager`, `DiarizerManager`,
+`SortformerDiarizer`, `LSEENDDiarizer` and `KokoroManager` on `device`
+(None: the GPU; pass "cpu" to run on the CPU). The fixtures themselves are
+the JAX package's committed npz (`fluidaudio_tpu/assets/trained_tiny/`),
+read as files.
 """
 
 from __future__ import annotations
@@ -40,6 +41,9 @@ ONLINE_DIAR_CLUSTER_THRESHOLD = 0.25
 #: ~0.595, so 0.30 cuts in the middle (the default 0.6 is the real-WeSpeaker
 #: value and sits a hair above the cross merge here)
 OFFLINE_AHC_THRESHOLD = 0.30
+#: the online attractor diarizer (900 ms warm-up suppressed) on the same
+#: corpus is held to the online gate
+LSEEND_DER_GATE = 0.10
 
 
 def trained_assets_dir() -> Path:
@@ -434,3 +438,126 @@ def eval_online_diarizer_fixture(seed: int = 97531, seconds: float = 60.0, *,
     mix, ref, _ = tc.diarizer_mixture(rs, seconds, overlap_prob=0.0)
     result = mgr.process(mix)
     return {"der": float(_der(result, ref)), "speaker_count": float(result.speaker_count)}
+
+
+def eval_lseend_fixture(seed: int = 8642, seconds: float = 60.0, *, device=None) -> float:
+    """DER of the trained tiny LS-EEND through the FULL LSEENDDiarizer.process
+    path (16 kHz resample -> per-step mel+CMN -> recurrent attractor steps ->
+    segment reconstruction) on a held-out 2-speaker mixture. Online model:
+    the 900 ms warm-up suppression is part of the measured DER."""
+    from fluidaudio_tpu_torch.diarizer.lseend import LSEENDDiarizer
+    from fluidaudio_tpu_torch.models.lseend import LSEEND_TEST
+
+    rs = np.random.RandomState(seed)
+    mix, ref, _ = tc.diarizer_mixture(rs, seconds, overlap_prob=0.0)
+    diar = LSEENDDiarizer(LSEEND_TEST, step_ms=500,
+                          checkpoint_dir=trained_assets_dir() / "lseend", device=device)
+    return _der(diar.process(mix), ref)
+
+
+# --------------------------------------------------------------------- TTS
+#: Kokoro tiny fixture conventions: tone word i renders as IPA letter
+#: 'a'+i (all 16 in the 178-symbol StyleTTS2 table); custom-lexicon entries
+#: map the text words "w0".."w15" onto them. 25 ms acoustic frames (HOP 600
+#: @ 24 kHz): a word is 12 frames of tone, the inter-word space 5 frames,
+#: the BOS/EOS pad symbol 1 frame of silence each.
+TTS_WORD_SYMBOLS = "abcdefghijklmnop"
+TTS_WORD_FRAMES = 12
+TTS_GAP_FRAMES = 5
+TTS_PAD_FRAMES = 1
+#: roundtrip gate: synthesized speech must be transcribed by the trained
+#: ASR fixture at ~0 WER (the reference's tts-asr-verify CLI contract); the
+#: JAX reference itself does not clear it (ROADMAP Queue C)
+TTS_ROUNDTRIP_WER_GATE = 0.02
+
+
+def kokoro_tiny_config():
+    """The JAX package's tiny KokoroConfig of the trained `tts` fixture: the
+    full topology at fixture scale, pinned to the fixed 160-frame grid it
+    was trained on (the generator's instance-norm statistics see the padded
+    grid), f0_scale 500 and phase_scale pi for the tone corpus, and the
+    iSTFT head at hop 1 (rates (20, 15), prod(rates) * hop = 300 keeps the
+    manager's HOP = 600)."""
+    from fluidaudio_tpu_torch.models.kokoro import KokoroConfig
+
+    return KokoroConfig(
+        d_model=64, n_layer=1,
+        albert_emb=32, albert_hidden=64, albert_heads=4, albert_inter=128,
+        albert_layers=2,
+        decoder_hidden=64, asr_res_ch=16, upsample_initial=64,
+        resblock_kernels=(3, 7), resblock_dilations=((1, 3), (1, 3)),
+        max_frames=384,
+        frame_buckets=(160,),
+        f0_scale=500.0, phase_scale=float(np.pi),
+        upsample_rates=(20, 15), upsample_kernels=(40, 31), gen_hop=1,
+    )
+
+
+def tts_lexicon() -> dict[str, str]:
+    """Custom-lexicon entries wiring the tone-word texts to their symbols."""
+    return {tc.word_text(i): TTS_WORD_SYMBOLS[i] for i in range(tc.N_WORDS)}
+
+
+def tts_durations(n_words: int) -> np.ndarray:
+    """Ground-truth per-token frame durations for the wrapped id sequence
+    [pad, sym, space, sym, ..., sym, pad]."""
+    out = [TTS_PAD_FRAMES]
+    for w in range(n_words):
+        out.append(TTS_WORD_FRAMES)
+        out.append(TTS_GAP_FRAMES if w + 1 < n_words else TTS_PAD_FRAMES)
+    return np.asarray(out, np.float32)
+
+
+def load_tts_manager(*, device=None):
+    from fluidaudio_tpu_torch.tts.kokoro_manager import KokoroManager
+
+    mgr = KokoroManager(
+        variant="english", default_voice="af_test",
+        checkpoint_dir=trained_assets_dir() / "tts",
+        config=kokoro_tiny_config(), device=device,
+    )
+    mgr.set_english_custom_lexicon(tts_lexicon())
+    return mgr
+
+
+def eval_tts_fixture(seed: int = 8642, n_utts: int = 3, *, device=None) -> dict:
+    """The full synthesis contract: text -> custom-lexicon G2P -> duration ->
+    prosody/vocoder -> 24 kHz samples -> post-process, then CLOSED LOOP
+    through the trained ASR fixture after 24->16 kHz resampling (the
+    reference's `tts-asr-verify`), and the mean absolute duration error in
+    frames on the same phoneme sequences (rounding-safe is < 0.5), and each
+    utterance's (text, transcript) under `"utterances"`."""
+    from fluidaudio_tpu_torch.asr.config import ASRConfig
+    from fluidaudio_tpu_torch.asr.manager import AsrManager
+    from fluidaudio_tpu_torch.models.zoo import AsrModels
+    from fluidaudio_tpu_torch.tts.roundtrip import TINY_CORPUS_CHANNEL, tts_asr_roundtrip
+
+    tts = load_tts_manager(device=device)
+    asr = AsrManager(
+        AsrModels.load("test-tiny", checkpoint_dir=trained_assets_dir() / "asr",
+                       allow_random_init=False, device=device),
+        ASRConfig(),
+    )
+    rs = np.random.RandomState(seed)
+    rates, dur_errs, utterances = [], [], []
+    for _ in range(n_utts):
+        ids = rs.randint(0, tc.N_WORDS, size=int(rs.randint(2, 9)))
+        text = tc.transcript_text(ids)
+        r = tts_asr_roundtrip(tts, asr, text, channel=TINY_CORPUS_CHANNEL)
+        rates.append(r.wer)
+        utterances.append((r.text, r.transcript))
+        # duration head accuracy on the same phoneme sequence, at JAX's
+        # 32-token grid
+        phonemes = " ".join(TTS_WORD_SYMBOLS[int(i)] for i in ids)
+        tok = [0, *tts.encode_phonemes(phonemes), 0]
+        tokens = np.zeros((1, 32), np.int64)
+        tokens[0, : len(tok)] = tok
+        style_s = torch.as_tensor(tts.voices["af_test"][len(phonemes) - 1][128:][None]).to(
+            tts.device)
+        dur, _, _ = tts.text_program(
+            torch.as_tensor(tokens).to(tts.device),
+            torch.tensor([len(tok)], dtype=torch.int32, device=tts.device), style_s, 1.0)
+        got = dur[0, : len(tok)].cpu().numpy()
+        dur_errs.append(float(np.abs(got - tts_durations(len(ids))).mean()))
+    return {"roundtrip_wer_avg": float(np.mean(rates)),
+            "dur_mae_frames": float(np.mean(dur_errs)), "utterances": utterances}

@@ -13,7 +13,8 @@ language, "b": word `i` is a fundamental at `200 * 1.17**i` Hz plus a strong
 2.3x partial, read "v{i}". The VAD fixture's speech is `speechish`,
 AM-modulated noise. The diarizer fixtures (`offline`, `sortformer`) hear
 two "speakers", each a 3-partial harmonic stack with its own amplitude
-modulation, mixed by `diarizer_mixture` into turns with reference segments.
+modulation, mixed by `diarizer_mixture` into turns with reference segments;
+`lseend_batch` resamples such mixtures to LS-EEND's 8 kHz with frame labels.
 """
 
 from __future__ import annotations
@@ -180,3 +181,33 @@ def diarizer_mixture(
         ref.append((f"spk{k}", s, e))
     return mix, ref, labels
 
+
+def lseend_batch(
+    rs: np.random.RandomState,
+    batch: int,
+    n_steps: int,
+    step_frames: int = 5,
+    overlap_prob: float = 0.1,
+) -> tuple[np.ndarray, np.ndarray]:
+    """LS-EEND training batch: (audio8k [B, n_steps*step_frames*800],
+    labels [B, n_steps*step_frames, 10]).
+
+    Audio is the 2-speaker mixture resampled to the model's native 8 kHz with
+    the SAME `utils.converter.resample` the manager's public path uses, so
+    train == inference preprocessing exactly. Labels are arrival-order on the
+    100 ms frame grid, zero-padded to the 10 attractor slots."""
+    from fluidaudio_tpu_torch.models.lseend import LSEEND_SAMPLE_RATE, MAX_SPEAKERS
+    from fluidaudio_tpu_torch.utils.converter import resample
+
+    frames = n_steps * step_frames
+    seconds = frames * 0.1
+    step_samples = step_frames * LSEEND_SAMPLE_RATE // 10
+    audio = np.zeros((batch, n_steps * step_samples), np.float32)
+    labels = np.zeros((batch, frames, MAX_SPEAKERS), np.float32)
+    for b in range(batch):
+        mix, _, lab = diarizer_mixture(rs, seconds, overlap_prob=overlap_prob,
+                                       frame_sec=0.1)
+        a8 = resample(mix, SR, LSEEND_SAMPLE_RATE)
+        audio[b, : min(a8.size, audio.shape[1])] = a8[: audio.shape[1]]
+        labels[b, : min(lab.shape[0], frames), : lab.shape[1]] = lab[:frames]
+    return audio, labels

@@ -16,6 +16,15 @@ and maps each to a torch `state_dict` key and layout:
   `kernel [H, Dh, d]` -> `weight [d, H*Dh]`. A 3-D kernel under those names
   is never a Conv1d (the two have the same rank, so the name decides).
 - flax Conv2d `kernel [kh, kw, in/g, out]`  -> `weight [out, in/g, kh, kw]`
+- the transposed-conv kernels that Kokoro (and StyleTTS2) keep as free
+  params, `[k, in/g, out]` (the JAX package applies them as an
+  input-dilated convolution with the kernel flipped in time), by name into
+  `F.conv_transpose1d`'s `[in, out/g, k]`, unflipped: `pool_kernel`
+  (depthwise, groups = out: `[3, 1, C]` -> `[C, 1, 3]`) and `up_kernel_<i>`
+  (groups 1: `[k, in, out]` -> `[in, out, k]`). The generic 3-D rule would
+  give `[out, in/g, k]`, which fits the shape wherever in == out.
+- the Snake `alpha1_<i>` / `alpha2_<i>` `[1, 1, C]` (for [B, T, C]
+  activations) -> `[1, C, 1]` (the port's channels-first [B, C, T]).
 - flax LayerNorm `scale`                    -> `weight`
 - JAX `Int8Dense` `kernel_q [in, out]` int8 -> `weight_q [out, in]` int8
   (K contiguous, the layout the int8 kernel reads), `kernel_scale [1, out]`
@@ -31,6 +40,7 @@ The leading `params` collection is dropped and '/' becomes '.', so
 
 from __future__ import annotations
 
+import re
 from pathlib import Path
 from typing import Any, Mapping
 
@@ -40,6 +50,16 @@ from torch import nn
 
 
 _DENSE_GENERAL_IN = ("query", "key", "value")
+_UP_KERNEL = re.compile(r"up_kernel_\d+")
+_SNAKE_ALPHA = re.compile(r"alpha[12]_\d+")
+
+
+def conv_transpose_weight(kernel: np.ndarray, groups: int) -> np.ndarray:
+    """A JAX transposed-conv kernel `[k, in/g, out]` -> `F.conv_transpose1d`'s
+    `[in, out/g, k]`: w[g*(in/g) + i, o, t] = kernel[t, i, g*(out/g) + o]."""
+    k, ipg, out = kernel.shape
+    w = kernel.reshape(k, ipg, groups, out // groups).transpose(2, 1, 3, 0)
+    return w.reshape(groups * ipg, out // groups, k)
 
 
 def _torch_key_and_value(flax_key: str, value: np.ndarray) -> tuple[str, np.ndarray]:
@@ -56,6 +76,12 @@ def _torch_key_and_value(flax_key: str, value: np.ndarray) -> tuple[str, np.ndar
     elif owner == "out" and leaf == "kernel" and value.ndim == 3:
         value = value.reshape(-1, value.shape[-1]).T
         parts[-1] = "weight"
+    elif leaf == "pool_kernel" and value.ndim == 3:
+        value = conv_transpose_weight(value, groups=value.shape[2])
+    elif _UP_KERNEL.fullmatch(leaf) and value.ndim == 3:
+        value = conv_transpose_weight(value, groups=1)
+    elif _SNAKE_ALPHA.fullmatch(leaf) and value.ndim == 3:
+        value = value.reshape(1, -1, 1)
     elif leaf == "kernel":
         if value.ndim == 2:
             value = value.T

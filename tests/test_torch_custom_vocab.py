@@ -85,27 +85,49 @@ def jax_fixtures(test_file: str, modules=("",), overrides=None, edits=()) -> dic
 
 
 class _Case:
-    """One JAX test case on the port; fixture arguments come from `request`."""
+    """One JAX test case on the port; fixture arguments come from `request`,
+    `bound` ones (a parametrize mark's values) are given."""
 
-    def __init__(self, fn, fixtures, cls=None):
-        self.fn, self.fixtures, self.cls = fn, fixtures, cls
+    def __init__(self, fn, fixtures, cls=None, bound=None):
+        self.fn, self.fixtures, self.cls, self.bound = fn, fixtures, cls, bound or {}
 
     def __call__(self, request=None):
         kwargs = {name: request.getfixturevalue(name) for name in self.fixtures}
+        kwargs.update(self.bound)
         if self.cls is not None:
             return getattr(self.cls(), self.fn.__name__)(**kwargs)
         return self.fn(**kwargs)
 
 
+def _parametrized(fn) -> list[tuple[str, dict]]:
+    """(id suffix, bound arguments) per combination of `fn`'s
+    `pytest.mark.parametrize` marks; [("", {})] when it has none."""
+    combos = [("", {})]
+    for mark in getattr(fn, "pytestmark", []):
+        if mark.name != "parametrize":
+            continue
+        names, values = mark.args[0], mark.args[1]
+        names = [n.strip() for n in names.split(",")] if isinstance(names, str) else list(names)
+        rows = []
+        for i, v in enumerate(values):
+            v = v.values if hasattr(v, "values") and hasattr(v, "marks") else v
+            v = v if len(names) > 1 else (v,)
+            rows.append((str(i), dict(zip(names, v))))
+        combos = [(f"{a}-{b}".strip("-"), {**da, **db}) for a, da in combos for b, db in rows]
+    return combos
+
+
 def jax_cases(test_file: str, modules=("",), select=None, *, overrides=None, edits=(),
-              fixtures=False) -> list:
+              fixtures=False, params=False) -> list:
     """The test functions and test-class methods of the JAX package's test
     module `tests/<test_file>` (loaded by `jax_module`), with `select` only
     those whose qualified name starts with one of its prefixes.
     -> pytest.param(case, id=qualified name) per case; `case(request)` runs
     it. Cases that take fixtures are kept only with `fixtures=True`: they
     request them through `request` (built-in ones, and the module's own
-    once `jax_fixtures` are set in the caller's globals)."""
+    once `jax_fixtures` are set in the caller's globals). With
+    `params=True` a case with `pytest.mark.parametrize` marks becomes one
+    case per value set (id `name[i]`), its arguments bound."""
     mod = jax_module(test_file, modules, overrides, edits)
     cases = []
     for name, obj in vars(mod).items():
@@ -117,10 +139,15 @@ def jax_cases(test_file: str, modules=("",), select=None, *, overrides=None, edi
         else:
             continue
         for qualname, fn, cls in members:
-            needs = [p for p in inspect.signature(fn).parameters if p != "self"]
-            if (needs and not fixtures) or (select and not qualname.startswith(tuple(select))):
+            if select and not qualname.startswith(tuple(select)):
                 continue
-            cases.append(pytest.param(_Case(fn, needs, cls), id=qualname))
+            for suffix, bound in (_parametrized(fn) if params else [("", {})]):
+                needs = [p for p in inspect.signature(fn).parameters
+                         if p != "self" and p not in bound]
+                if needs and not fixtures:
+                    continue
+                cases.append(pytest.param(_Case(fn, needs, cls, bound),
+                                          id=f"{qualname}[{suffix}]" if suffix else qualname))
     return cases
 
 

@@ -56,6 +56,13 @@ PORTED = [
     ("fluidaudio_tpu_torch.diarizer.speaker_manager", "SpeakerManager"),
     ("fluidaudio_tpu_torch.diarizer.speaker_id", "SpeakerVerifier"),
     ("fluidaudio_tpu_torch.diarizer.metrics", "compute_der"),
+    ("fluidaudio_tpu_torch.diarizer.lseend", "LSEENDDiarizer"),
+    ("fluidaudio_tpu_torch.tts.kokoro_manager", "KokoroManager"),
+    ("fluidaudio_tpu_torch.tts.g2p", "EnglishG2P"),
+    ("fluidaudio_tpu_torch.tts.ssml", "SSMLProcessor"),
+    ("fluidaudio_tpu_torch.tts.roundtrip", "tts_asr_roundtrip"),
+    ("fluidaudio_tpu_torch.itn", "TextNormalizer"),
+    ("fluidaudio_tpu_torch.utils.chunk_queue", "StreamingChunkQueue"),
 ]
 
 
@@ -72,7 +79,7 @@ NOT_PORTED = {
     "ops": set(),
     "models": set(),
     "utils": set(),
-    "metrics": {"normalize_for_scoring", "parse_rttm", "write_rttm", "build_kaldi_split",
+    "metrics": {"parse_rttm", "write_rttm", "build_kaldi_split",
                 "load_ami_ground_truth", "load_frame_aligned_der_reference",
                 "load_kaldi_der_reference", "load_word_aligned_ground_truth"},
     "registry": set(),
@@ -80,6 +87,8 @@ NOT_PORTED = {
     "asr.custom_vocab": set(),
     "diarizer": set(),
     "diarizer.offline": set(),
+    "tts": {"PocketTtsManager", "StyleTTS2Manager", "Supertonic3Manager"},
+    "itn": set(),
 }
 
 
