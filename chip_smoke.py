@@ -154,10 +154,29 @@ line is not printed:
      RTFx, launches, device busy, idle share, peak memory and
      `KokoroStageTimings`; then Kokoro at full width with ALBERT cut to 2
      layers, card against CPU with the same draws (durations, d, t_en and
-     audio within 1e-4 relative L2).
+     audio within 1e-4 relative L2);
+ 18. the rest of TTS (no kernel of the port is on it: every count reads
+     0): the trained `pocket` fixture on the card against the CPU with the
+     same frame noise (frame counts, done flags, samples, a `stream` and
+     `clone_voice`: within 1e-4; the EOS logits' nearest approach to the
+     threshold printed) and the trained `styletts2` fixture (style vectors,
+     duration logits, F0/N and the acoustic program on the CPU's harmonic
+     source within 1e-4, frame counts equal, end to end within 1e-1); the
+     G2P decoders at G2P_BASE and ByT5-small (12 + 4 x 1472) on a batch of
+     words, token ids equal to the CPU's; the g2pW BERT-base logits within
+     1e-5 and `MandarinG2P` / Kokoro's mandarin variant over it on a Hanzi
+     paragraph, bopomofo and phoneme ids equal; at full width with seeded
+     random weights drawn on the card: StyleTTS2 (`STYLETTS2_BASE`,
+     durations calibrated to 2-3 frames per token) on 64 and 256 tokens,
+     PocketTTS (`POCKET_BASE`, EOS off: 250 frames, the frame step a CUDA
+     graph) `synthesize`, `stream` per 25-frame block and `clone_voice`, and
+     Supertonic-3 (`SUPERTONIC3_BASE`, 8 steps); timing (card name and
+     power limit on every line): ms per request, RTFx, launches, device busy,
+     idle share and peak memory; then the three at full width, reduced
+     depth, card against CPU (within 1e-4 relative L2).
 
 The line before the last is the kernel record (JSON, with each kernel's
-launches on its main path and on each path of phases 11-17, the plain
+launches on its main path and on each path of phases 11-18, the plain
 attention's calls on the paths that take it, bound and times); the last
 line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -2788,6 +2807,467 @@ def phase_tts_lseend_itn(attn, i8, device, smi: str) -> tuple[dict, list[str]]:
     return paths, lines
 
 
+# --------------------------------------------------------------- phase 18
+G2P_WORDS = ["chat", "eau", "bonjour", "données", "schön", "straße", "hello", "world",
+             "x", "anticonstitutionnellement"]
+HANZI_TEXT = ("今天天气很好，我们一起去公园散步吧。银行的行长说，这个月的利率不会变。"
+              "他们在2024年3月15日下午3点半见面，花了1250元。重庆的朋友长得很高。")
+STYLETTS2_TOKENS = (64, 256)
+SUPERTONIC_TEXT = ("The quick brown fox jumps over the lazy dog. Speech synthesis on a "
+                   "graphics card should be fast.")
+
+
+def pocket_fixture_runs(device, noise: torch.Tensor) -> dict:
+    """The trained `pocket` fixture on `device`, every frame's noise taken
+    from `noise` (made on the CPU): per text its frame count, done flags,
+    EOS logits and samples; the `stream` blocks of one text; the cloned
+    voice's prompt and its synthesis."""
+    from fluidaudio_tpu_torch.train import fixtures as fx
+    from fluidaudio_tpu_torch.train import tiny_corpus as tc
+
+    mgr = fx.load_pocket_manager(device=device)
+    lat = mgr.cfg.mimi.latent_dim
+    mgr.frame_noise = lambda seed, n: noise[seed, :n].to(device)
+    blocks = iter(noise[1:].reshape(-1, mgr.STREAM_BLOCK_FRAMES, lat))
+    mgr.block_noise = lambda gen: next(blocks).to(device)
+    out = {}
+    for ids in ([3, 7, 12], [15, 0], [5, 9, 2, 14, 1, 8]):
+        text = tc.transcript_text(np.asarray(ids))
+        kv, pos, cond = mgr.prefill(mgr._tokenize(text), mgr.voices["default"])
+        audio, done, eos = mgr.generate(kv, pos, cond, noise[0, : mgr.cfg.max_frames].to(device))
+        result = mgr.synthesize(text)
+        out[text] = (result.frames, done, eos, result.samples)
+    out["stream"] = np.concatenate(list(mgr.stream(tc.transcript_text(np.asarray([1, 8])))))
+    mgr.clone_voice(fx.pocket_voice_reference(), "cloned")
+    out["clone"] = (mgr.voices["cloned"],
+                    mgr.synthesize(tc.transcript_text(np.asarray([1, 8])), voice="cloned").samples)
+    return out
+
+
+def styletts2_fixture_runs(device, sources: dict) -> dict:
+    """The trained `styletts2` fixture on `device`: per text its style
+    vectors, durations, F0 and N tracks, the acoustic program's output and
+    the samples. The harmonic source's outputs are recorded into
+    `sources["out"]`, or, with `sources["in"]`, replaced by those."""
+    from fluidaudio_tpu_torch.models import styletts2 as st
+    from fluidaudio_tpu_torch.models.kokoro import expand_durations
+    from fluidaudio_tpu_torch.train import fixtures as fx
+    from fluidaudio_tpu_torch.train import tiny_corpus as tc
+    from fluidaudio_tpu_torch.tts.styletts2_manager import text_cleaner_encode
+
+    mgr = fx.load_styletts2_manager(device=device)
+    ref = fx.styletts2_ref_clip()
+    forward = st.HifiSourceModule.forward
+    given = iter(sources.get("in", ()))
+
+    def source(self, f0_up, *a, **k):
+        if "in" in sources:
+            return next(given).to(f0_up.device)
+        har = forward(self, f0_up, *a, **k)
+        sources.setdefault("out", []).append(har.cpu())
+        return har
+
+    out = {}
+    try:
+        st.HifiSourceModule.forward = source
+        for u, ids in enumerate(([3, 7, 12], [15, 0], [5, 9, 2, 14, 1, 8])):
+            text = tc.transcript_text(np.asarray(ids))
+            tok = text_cleaner_encode(mgr.phonemizer.phonemize(text))
+            tokens = np.zeros((1, mgr.token_bucket(len(tok))), np.int64)
+            tokens[0, : len(tok)] = tok
+            lengths = torch.tensor([len(tok)], dtype=torch.int32, device=device)
+            bert_dur, d_en, t_en = mgr.text_prog(torch.as_tensor(tokens).to(device), lengths)
+            s_pred, ref_s = mgr.styles(bert_dur, lengths, ref, u)
+            ref128, s128 = st.blend_style(s_pred, ref_s)
+            s128_t = torch.as_tensor(s128).to(device)
+            d, logits = mgr.predict_prog(d_en, s128_t, lengths)
+            dur = st.round_durations(logits[0].cpu().numpy(), len(tok))
+            frame_idx, total = expand_durations(dur.astype(np.float64), mgr.cfg.max_frames)
+            audio, f0, n_ = mgr.acoustic_prog(
+                d, t_en, torch.as_tensor(frame_idx[None, :256].astype(np.int64)).to(device),
+                torch.tensor([total], dtype=torch.int32, device=device), s128_t,
+                torch.as_tensor(ref128).to(device), with_prosody=True)
+            out[text] = (np.concatenate([s_pred, ref_s], axis=1), logits.cpu().numpy(), total,
+                         f0.cpu().numpy(), n_.cpu().numpy(), audio.cpu().numpy(),
+                         mgr.synthesize(text, reference_audio=ref, noise_seed=u).samples)
+    finally:
+        st.HifiSourceModule.forward = forward
+    return out
+
+
+def phase_fixtures_18(attn, i8, device) -> tuple[dict, str]:
+    """The trained `pocket` and `styletts2` fixtures on the card against the
+    port on the CPU, with the same frame noise."""
+    paths, parts = {}, []
+    noise = torch.randn((12, 250, 8), generator=torch.Generator().manual_seed(18))
+    cpu = pocket_fixture_runs("cpu", noise)
+    card, c = counted(attn, i8, lambda: pocket_fixture_runs(device, noise))
+    errs, margin = {"samples": 0.0, "EOS logits": 0.0}, float("inf")
+    for text, run in card.items():
+        if text in ("stream", "clone"):
+            continue
+        frames, done, eos, samples = run
+        c_frames, c_done, c_eos, c_samples = cpu[text]
+        check(frames == c_frames and np.array_equal(done, c_done),
+              f"pocket fixture {text!r}: frames {frames}/{c_frames} or done flags differ")
+        errs["samples"] = max(errs["samples"], rel_l2(torch.as_tensor(samples),
+                                                      torch.as_tensor(c_samples)))
+        errs["EOS logits"] = max(errs["EOS logits"], float(np.abs(eos - c_eos).max()))
+        margin = min(margin, float(np.abs(c_eos - (-4.0)).min()))
+    stream_err = rel_l2(torch.as_tensor(card["stream"]), torch.as_tensor(cpu["stream"]))
+    clone_err = max(rel_l2(torch.as_tensor(a), torch.as_tensor(b))
+                    for a, b in zip(card["clone"], cpu["clone"]))
+    check(card["stream"].shape == cpu["stream"].shape and stream_err <= FAMILY_CARD_TOL
+          and clone_err <= FAMILY_CARD_TOL and errs["samples"] <= FAMILY_CARD_TOL,
+          f"pocket fixture card vs CPU: {errs}, stream {stream_err}, clone {clone_err}")
+    paths["pocket fixture (phase 18)"] = c
+    parts.append(f"pocket: frame counts {[r[0] for k, r in card.items() if k not in ('stream', 'clone')]}"
+                 f" and done flags equal; max rel L2 (tol {FAMILY_CARD_TOL}) samples "
+                 f"{errs['samples']:.2e}, stream {stream_err:.2e} ({card['stream'].size} samples)"
+                 f", clone prompt and samples {clone_err:.2e}; EOS logits max abs "
+                 f"{errs['EOS logits']:.2e}, nearest to the threshold by {margin:.3f}")
+
+    sources = {}
+    cpu_st = styletts2_fixture_runs("cpu", sources)
+    card_st, c = counted(attn, i8, lambda: styletts2_fixture_runs(device, {"in": sources["out"]}))
+    errs = {k: 0.0 for k in ("styles", "duration logits", "F0, N", "program")}
+    for text, (styles, logits, total, f0, n_, program, samples) in card_st.items():
+        c_styles, c_logits, c_total, c_f0, c_n, c_program, c_samples = cpu_st[text]
+        check(total == c_total and samples.shape == c_samples.shape,
+              f"styletts2 fixture {text!r}: frame count {total}/{c_total}")
+        rel = lambda x, y: rel_l2(torch.as_tensor(x), torch.as_tensor(y))  # noqa: E731
+        for key, e in (("styles", rel(styles, c_styles)), ("duration logits", rel(logits, c_logits)),
+                       ("F0, N", max(rel(f0, c_f0), rel(n_, c_n))),
+                       ("program", rel(program, c_program))):
+            errs[key] = max(errs[key], e)
+    check(all(e <= FAMILY_CARD_TOL for e in errs.values()), f"styletts2 card vs CPU: {errs}")
+    free, c2 = counted(attn, i8, lambda: styletts2_fixture_runs(device, {}))
+    end = max(rel_l2(torch.as_tensor(run[-1]), torch.as_tensor(cpu_st[t][-1]))
+              for t, run in free.items())
+    check(end <= TTS_SAMPLES_TOL, f"styletts2 fixture end to end card vs CPU: {end}")
+    paths["styletts2 fixture (phase 18)"] = {k: c[k] + c2[k] for k in c}
+    parts.append(f"styletts2 (the generator on the CPU's harmonic source): frame counts "
+                 f"{[r[2] for r in card_st.values()]} equal; max rel L2 (tol {FAMILY_CARD_TOL}) "
+                 + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                 + f"; end to end samples {end:.2e} (tol {TTS_SAMPLES_TOL})")
+    return paths, " | ".join(parts)
+
+
+def copy_to_cpu(module: torch.nn.Module, cpu_module: torch.nn.Module) -> torch.nn.Module:
+    cpu_module.load_state_dict({k: v.cpu() for k, v in module.state_dict().items()})
+    return cpu_module
+
+
+def phase_g2p(attn, i8, device) -> tuple[dict, str]:
+    """MultilingualG2P at G2P_BASE and ByT5 at BYT5_SMALL (seeded random
+    weights drawn on the card, copied to the CPU) on a batch of words: token
+    ids equal; MandarinG2pw at G2PW_BASE: logits within 1e-5 relative L2;
+    MandarinG2P and Kokoro's mandarin variant over it on a Hanzi paragraph:
+    bopomofo and phoneme ids equal."""
+    from fluidaudio_tpu_torch.models.bert_g2pw import G2PW_BASE, BertG2pw
+    from fluidaudio_tpu_torch.models.byt5_g2p import BYT5_SMALL, ByT5G2P
+    from fluidaudio_tpu_torch.models.zoo import random_init_
+    from fluidaudio_tpu_torch.tts.g2p import MultilingualG2P
+    from fluidaudio_tpu_torch.tts.kokoro_manager import KokoroManager
+    from fluidaudio_tpu_torch.tts.mandarin_g2p import MandarinG2P, MandarinG2pw
+
+    paths, parts = {}, []
+    empty = REPO / "no-checkpoint"
+
+    def g2p_ids():
+        mg = MultilingualG2P(checkpoint_dir=empty, device=device)
+        byt5 = ByT5G2P(BYT5_SMALL, device=device).eval()
+        random_init_(byt5, torch.Generator(device=device).manual_seed(5))
+        seq2seq = mg.decode_ids(G2P_WORDS, "fra")
+        mg.byt5 = byt5
+        return mg, seq2seq, mg.decode_ids(G2P_WORDS, "fra")
+
+    (mg, seq_card, byt5_card), c = counted(attn, i8, g2p_ids)
+    paths["MultilingualG2P seq2seq + ByT5-small (phase 18)"] = c
+    cpu = MultilingualG2P(checkpoint_dir=empty, device="cpu")
+    copy_to_cpu(mg.model, cpu.model)
+    seq_cpu = cpu.decode_ids(G2P_WORDS, "fra")
+    cpu.byt5 = copy_to_cpu(mg.byt5, ByT5G2P(BYT5_SMALL, device="cpu").eval())
+    byt5_cpu = cpu.decode_ids(G2P_WORDS, "fra")
+    check(np.array_equal(seq_card, seq_cpu) and np.array_equal(byt5_card, byt5_cpu),
+          "G2P decoders: the card's token ids differ from the CPU's")
+    parts.append(f"G2P seq2seq (G2P_BASE) and ByT5-small (12 + 4 x 1472) on {len(G2P_WORDS)} "
+                 f"words: token ids equal ({seq_card.shape} and {byt5_card.shape})")
+
+    catalog = {"行": {"xing2": 1, "hang2": 2}, "长": {"chang2": 3, "zhang3": 4},
+               "重": {"zhong4": 5, "chong2": 6}, "得": {"de5": 7, "dei3": 8},
+               "了": {"le5": 9, "liao3": 10}, "不": {"bu4": 11, "bu2": 12}}
+    vocab = {"[UNK]": 100, "[CLS]": 101, "[SEP]": 102}
+    for i, ch in enumerate(sorted(set(HANZI_TEXT))):
+        vocab.setdefault(ch, 103 + i)
+
+    def g2pw_card():
+        model = BertG2pw(G2PW_BASE, device=device).eval()
+        random_init_(model, torch.Generator(device=device).manual_seed(6))
+        return MandarinG2pw(model, vocab, catalog)
+
+    def mandarin(g2pw, dev):
+        kok = KokoroManager(variant="mandarin", checkpoint_dir=empty, device=dev)
+        kok.mandarin_g2p = MandarinG2P(g2pw=g2pw)
+        bopomofo = kok.phonemes_for(HANZI_TEXT)
+        return bopomofo, kok.encode_phonemes(bopomofo), kok
+
+    targets = [i for i, ch in enumerate(HANZI_TEXT) if ch in catalog]
+    card_g2pw, c = counted(attn, i8, g2pw_card)
+    (logits, (bopomofo, ids, kok)), c2 = counted(attn, i8, lambda: (
+        card_g2pw.logits(HANZI_TEXT, targets), mandarin(card_g2pw, device)))
+    cpu_g2pw = MandarinG2pw(copy_to_cpu(card_g2pw.model, BertG2pw(G2PW_BASE, device="cpu").eval()),
+                            vocab, catalog)
+    c_logits = cpu_g2pw.logits(HANZI_TEXT, targets)
+    c_bopomofo, c_ids, _ = mandarin(cpu_g2pw, "cpu")
+    err = rel_l2(torch.as_tensor(logits), torch.as_tensor(c_logits))
+    check(err <= 1e-5 and bopomofo == c_bopomofo and ids == c_ids,
+          f"mandarin G2P card vs CPU: logits {err}, bopomofo equal {bopomofo == c_bopomofo}")
+    result, c3 = counted(attn, i8, lambda: kok.synthesize(HANZI_TEXT))
+    check(np.isfinite(result.samples).all() and result.samples.size > 0, "mandarin Kokoro samples")
+    paths["Kokoro mandarin + g2pW BERT-base (phase 18)"] = {k: c[k] + c2[k] + c3[k] for k in c}
+    parts.append(f"g2pW BERT-base (12 x 768, 21128 vocab, 700 labels) on {len(targets)} "
+                 f"polyphone targets: logits rel L2 {err:.2e} (tol 1e-5); MandarinG2P and "
+                 f"Kokoro mandarin on {len(HANZI_TEXT)} Hanzi: {len(ids)} phoneme ids equal; "
+                 f"synthesize {result.samples.size / 24000:.2f} s")
+    return paths, " | ".join(parts)
+
+
+def calibrate_styletts2_durations(mgr, n_tokens: int) -> tuple[str, float]:
+    """IPA phonemes of `n_tokens` TextCleaner tokens, and the
+    `duration_proj` bias (all outputs alike) bisected until their rounded
+    durations average 2-3 frames per token, as speech's do -> (phonemes,
+    frames per token)."""
+    from fluidaudio_tpu_torch.models.styletts2 import round_durations
+    from fluidaudio_tpu_torch.tts.g2p import _SEED_LEXICON
+    from fluidaudio_tpu_torch.tts.styletts2_manager import text_cleaner_encode
+
+    rs, words, phonemes = np.random.RandomState(n_tokens), list(_SEED_LEXICON.values()), ""
+    while len(text_cleaner_encode(phonemes)) < n_tokens:
+        phonemes += words[rs.randint(len(words))] + " "
+    phonemes = phonemes[: n_tokens - 1].strip()
+    ids = text_cleaner_encode(phonemes)
+    dev = mgr.device
+    tokens = torch.zeros((1, mgr.token_bucket(len(ids))), dtype=torch.int64, device=dev)
+    tokens[0, : len(ids)] = torch.as_tensor(ids)
+    lengths = torch.tensor([len(ids)], dtype=torch.int32, device=dev)
+    bert_dur, d_en, _ = mgr.text_prog(tokens, lengths)
+    s_pred, ref_s = mgr.styles(bert_dur, lengths, None, 0)
+    s128 = torch.as_tensor(0.7 * s_pred[:, 128:] + 0.3 * ref_s[:, 128:]).to(dev)
+    bias = mgr.predict_prog.duration_proj.bias
+    lo, hi, fpt = -20.0, 10.0, 0.0
+    for _ in range(30):
+        mid = 0.5 * (lo + hi)
+        with torch.no_grad():
+            bias.fill_(mid)
+        fpt = float(round_durations(mgr.predict_prog(d_en, s128, lengths)[1][0].cpu().numpy(),
+                                    len(ids)).mean())
+        if KOKORO_FRAMES_PER_TOKEN[0] <= fpt <= KOKORO_FRAMES_PER_TOKEN[1]:
+            break
+        lo, hi = (lo, mid) if fpt > KOKORO_FRAMES_PER_TOKEN[1] else (mid, hi)
+    return phonemes, fpt
+
+
+def tts_reduced_depth_parity(device) -> str:
+    """StyleTTS2, PocketTTS and Supertonic-3 at full width, reduced depth,
+    f32, seeded random weights drawn on the card and copied to the CPU:
+    each program's outputs card against CPU (StyleTTS2's audio against the
+    CPU in float64)."""
+    from dataclasses import replace
+
+    from fluidaudio_tpu_torch.models import pocket_tts as pt
+    from fluidaudio_tpu_torch.models import styletts2 as st
+    from fluidaudio_tpu_torch.models import supertonic3 as s3
+    from fluidaudio_tpu_torch.tts.pocket_manager import PocketTtsManager
+    from fluidaudio_tpu_torch.tts.styletts2_manager import StyleTTS2Manager, ref_mel_padded
+    from fluidaudio_tpu_torch.tts.supertonic_manager import Supertonic3Manager
+
+    empty, errs, parts = REPO / "no-checkpoint", {}, []
+
+    def pair(cls, cfg, names):
+        card = cls(cfg, checkpoint_dir=empty, device=device)
+        cpu = cls(cfg, checkpoint_dir=empty, device="cpu")
+        for name in names:
+            copy_to_cpu(getattr(card, name), getattr(cpu, name))
+        return card, cpu
+
+    rel = lambda a, b: rel_l2(torch.as_tensor(np.asarray(a)), torch.as_tensor(np.asarray(b)))  # noqa: E731
+    cfg = replace(st.STYLETTS2_BASE, albert_layers=2, diff_layers=1)
+    card, cpu = pair(StyleTTS2Manager, cfg, ("text_prog", "style_prog", "predict_prog",
+                                             "acoustic_prog"))
+    ids = np.random.RandomState(4).randint(1, 178, size=40)
+    mel, used = ref_mel_padded(None, cfg.n_mels)
+    outs, source, forward = {}, {}, st.HifiSourceModule.forward
+
+    def replay(self, f0_up, *a, **k):  # every run's generator reads the CPU's source
+        if "cpu" not in source:
+            source["cpu"] = forward(self, f0_up, *a, **k).cpu()
+        return source["cpu"].to(device=f0_up.device, dtype=f0_up.dtype)
+
+    def run(m, dtype):
+        dev = m.device
+        for prog in ("text_prog", "style_prog", "predict_prog", "acoustic_prog"):
+            getattr(m, prog).to(dtype)
+        tokens = torch.as_tensor(ids[None]).to(dev)
+        lengths = torch.tensor([40], dtype=torch.int32, device=dev)
+        bert, d_en, t_en = m.text_prog(tokens, lengths)
+        noise_init, noises_aux = m.style_noise(0)
+        as_dev = lambda x: torch.as_tensor(x).to(dev, dtype)  # noqa: E731
+        s_pred, ref_s = m.style_prog(as_dev(mel), torch.tensor([used], device=dev), bert, lengths,
+                                     as_dev(noise_init), as_dev(noises_aux))
+        d, logits = m.predict_prog(d_en, ref_s[:, 128:], lengths)
+        frame_idx = torch.as_tensor(np.minimum(np.arange(100) // 2, 39)[None]).to(dev)
+        audio, f0, n_ = m.acoustic_prog(d, t_en, frame_idx, torch.tensor([100], device=dev),
+                                        ref_s[:, 128:], ref_s[:, :128], with_prosody=True)
+        return [x.double().cpu().numpy() for x in (bert, t_en, s_pred, ref_s, logits, f0, n_,
+                                                   audio)]
+
+    try:
+        st.HifiSourceModule.forward = replay
+        outs = {"cpu": run(cpu, torch.float32), "card": run(card, torch.float32),
+                "cpu f64": run(cpu, torch.float64)}
+    finally:
+        st.HifiSourceModule.forward = forward
+    # the audio's own f32 rounding error is ~1e-4 at this depth (the
+    # generator's 4 stages of AdaIN resblocks), on either device: the card's
+    # is held against the CPU's float64 run
+    errs["StyleTTS2"] = max(rel(a, b) for a, b in zip(outs["card"][:-1], outs["cpu"][:-1]))
+    errs["StyleTTS2 audio vs f64"] = rel(outs["card"][-1], outs["cpu f64"][-1])
+    parts.append(f"StyleTTS2 (ALBERT 2, denoiser 1 layer; 40 tokens, 100 frames; the "
+                 f"generators on the CPU's harmonic source) text, style, predict, F0/N "
+                 f"{errs['StyleTTS2']:.2e}, audio against the CPU's f64 run "
+                 f"{errs['StyleTTS2 audio vs f64']:.2e} (the CPU's f32 run: "
+                 f"{rel(outs['cpu'][-1], outs['cpu f64'][-1]):.2e}; card vs CPU "
+                 f"{rel(outs['card'][-1], outs['cpu'][-1]):.2e})")
+
+    mimi = replace(pt.POCKET_BASE.mimi, trans_layers=2)
+    cfg = replace(pt.POCKET_BASE, n_layers=2, flow_blocks=2, mimi=mimi, max_frames=8)
+    card, cpu = pair(PocketTtsManager, cfg, ("flowlm", "flow", "mimi", "mimi_enc"))
+    noise = torch.randn((8, cfg.mimi.latent_dim), generator=torch.Generator().manual_seed(8))
+    outs = {}
+    for key, m in (("card", card), ("cpu", cpu)):
+        tokens = m._tokenize("hello world, this is a test")
+        kv, pos, cond = m.prefill(tokens, m.voices["default"])
+        audio, done, eos = m.generate(kv, pos, cond, noise.to(m.device))
+        lat = m.mimi_enc(torch.as_tensor(np.sin(np.arange(48_000) / 9.0, dtype=np.float32))
+                         .to(m.device)[None]).cpu()
+        outs[key] = (cond.cpu(), audio, eos, lat)
+    errs["PocketTTS"] = max(rel(a, b) for a, b in zip(*outs.values()))
+    parts.append(f"PocketTTS (flow-LM 2 layers, Mimi 2; prefill, 8 frames, encoder on 2 s) "
+                 f"{errs['PocketTTS']:.2e}")
+
+    cfg = replace(s3.SUPERTONIC3_BASE, n_text_layers=1, n_est_layers=1, max_latent=32)
+    card, cpu = pair(Supertonic3Manager, cfg, ("text_enc", "dur_pred", "estimator", "vocoder"))
+    for m in (card, cpu):  # flax's zero inits make the estimator the identity
+        with torch.no_grad():
+            for name, p in m.estimator.named_parameters():
+                if name.endswith("mod.weight") or name == "out_proj.weight":
+                    p.copy_(torch.sin(torch.arange(p.numel(), dtype=torch.float32))
+                            .reshape(p.shape).to(p.device) * 0.02)
+    outs = {key: m.synthesize("Hello world, this is a test.").samples
+            for key, m in (("card", card), ("cpu", cpu))}
+    errs["Supertonic-3"] = rel(outs["card"], outs["cpu"])
+    parts.append(f"Supertonic-3 (1 text + 1 estimator layer, 8 steps, latent bucket 32) "
+                 f"{errs['Supertonic-3']:.2e}")
+    check(all(e <= TTS_CARD_TOL for e in errs.values()), f"TTS reduced depth card vs CPU: {errs}")
+    return "; ".join(parts)
+
+
+def phase_tts_rest(attn, i8, device, smi: str) -> tuple[dict, list[str]]:
+    """Phase 18: the trained `pocket` and `styletts2` fixtures on the card
+    against the CPU; the G2P decoders, g2pW and Kokoro's mandarin variant
+    against the CPU; StyleTTS2 (STYLETTS2_BASE), PocketTTS (POCKET_BASE) and
+    Supertonic-3 (SUPERTONIC3_BASE) at full width with seeded random weights
+    drawn on the card, each path counted (no kernel of the port is on them)
+    and timed; then the three at full width, reduced depth, card against
+    CPU. -> (launches per path, timing lines)."""
+    from fluidaudio_tpu_torch.tts.pocket_manager import PocketTtsManager
+    from fluidaudio_tpu_torch.tts.styletts2_manager import StyleTTS2Manager
+    from fluidaudio_tpu_torch.tts.supertonic_manager import Supertonic3Manager
+
+    t0, spent = time.perf_counter(), {}
+
+    def lap(what):
+        nonlocal t0
+        spent[what] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    paths, summary = phase_fixtures_18(attn, i8, device)
+    print(f"phase 18 trained fixtures on the card vs the CPU port: {summary} | launches "
+          f"{paths}", flush=True)
+    lap("fixtures")
+    g2p_paths, summary = phase_g2p(attn, i8, device)
+    paths.update(g2p_paths)
+    print(f"phase 18 G2P on the card vs the CPU port: {summary}", flush=True)
+    lap("G2P")
+
+    def path(label, fn):
+        out, c = counted(attn, i8, fn)
+        check(c["relpos_attention"] == 0 and c["int8_matmul_fused"] == 0
+              and c["relpos_attention_plain calls"] == 0, f"{label}: launches {c}")
+        paths[label] = c
+        return out
+
+    lines = []
+    empty = REPO / "no-checkpoint"  # seeded random weights, drawn on the card
+    mgr = StyleTTS2Manager(checkpoint_dir=empty, device=device)  # STYLETTS2_BASE
+    ref = speechlike(np.random.RandomState(18), 3.0)
+    for n in STYLETTS2_TOKENS:
+        phonemes, fpt = calibrate_styletts2_durations(mgr, n)
+        label = f"StyleTTS2 (LibriTTS) synthesize_phonemes, {n} tokens"
+        result = path(label, lambda: mgr._synthesize_phonemes(phonemes, ref))
+        check(np.isfinite(result.samples).all() and result.samples.size > 0, f"{label}: samples")
+        lines.append(time_request(smi, f"{label} ({fpt:.2f} frames per token, "
+                                       f"{result.duration:.2f} s of audio)",
+                                  lambda: mgr._synthesize_phonemes(phonemes, ref),
+                                  result.duration, runs=3, host_ops=False))
+    del mgr
+    torch.cuda.empty_cache()
+    lap("StyleTTS2")
+
+    mgr = PocketTtsManager(checkpoint_dir=empty, device=device)  # POCKET_BASE
+    with torch.no_grad():  # no EOS: all 250 frames are speech
+        mgr.flowlm.eos_head.bias.fill_(-1e4)
+    text = "The quick brown fox jumps over the lazy dog."  # one chunk (<= 50 tokens)
+    label = f"PocketTTS (6 x 1024, Mimi 8 x 512) synthesize, {mgr.cfg.max_frames} frames"
+    result = path(label, lambda: mgr.synthesize(text))
+    check(result.frames == mgr.cfg.max_frames and np.isfinite(result.samples).all(),
+          f"{label}: {result.frames} frames")
+    lines.append(time_request(smi, label, lambda: mgr.synthesize(text), result.duration, runs=3,
+                              host_ops=False, per=(result.frames, "frame")))
+    label = (f"PocketTTS stream, blocks of {mgr.STREAM_BLOCK_FRAMES} frames, "
+             f"{mgr.cfg.max_frames} frames")
+    blocks = path(label, lambda: list(mgr.stream(text)))
+    check(len(blocks) == mgr.cfg.max_frames, f"{label}: {len(blocks)} frames")
+    n_blocks = -(-mgr.cfg.max_frames // mgr.STREAM_BLOCK_FRAMES)
+    lines.append(time_request(smi, label, lambda: list(mgr.stream(text)), result.duration,
+                              runs=2, host_ops=False, per=(n_blocks, "block")))
+    voice = speechlike(np.random.RandomState(19), 5.0)
+    label = "PocketTTS clone_voice (Mimi encoder, 10 s window)"
+    path(label, lambda: mgr.clone_voice(voice, "cloned"))
+    lines.append(time_request(smi, label, lambda: mgr.clone_voice(voice, "cloned"), 10.0,
+                              runs=3, host_ops=False))
+    del mgr
+    torch.cuda.empty_cache()
+    lap("PocketTTS")
+
+    mgr = Supertonic3Manager(checkpoint_dir=empty, device=device)  # SUPERTONIC3_BASE
+    label = f"Supertonic-3 synthesize, {mgr.total_steps} steps, {len(SUPERTONIC_TEXT)} chars"
+    result = path(label, lambda: mgr.synthesize(SUPERTONIC_TEXT))
+    check(np.isfinite(result.samples).all() and result.samples.size > 0, f"{label}: samples")
+    lines.append(time_request(smi, f"{label} ({result.duration:.2f} s of audio)",
+                              lambda: mgr.synthesize(SUPERTONIC_TEXT), result.duration, runs=3,
+                              host_ops=False))
+    del mgr
+    torch.cuda.empty_cache()
+    lap("Supertonic-3")
+    print(f"phase 18 full width, reduced depth, f32, card vs CPU (tol {TTS_CARD_TOL} rel L2): "
+          f"{tts_reduced_depth_parity(device)}", flush=True)
+    lap("parity")
+    print("phase 18 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()), flush=True)
+    return paths, lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU", file=sys.stderr)
@@ -2835,6 +3315,8 @@ def main() -> int:
     elapsed("phase 16")
     paths.update(phase_tts_lseend_itn(attn, i8, device, smi)[0])
     elapsed("phase 17")
+    paths.update(phase_tts_rest(attn, i8, device, smi)[0])
+    elapsed("phase 18")
     print(json.dumps({"kernels": [{
         "name": "relpos_attention",
         "route": "cuda",

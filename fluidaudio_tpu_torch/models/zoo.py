@@ -103,10 +103,13 @@ def disable_tf32() -> None:
 def random_init_(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded init in place: LeCun-normal weights (flax's Dense/Conv default),
     zero biases, unit norms, N(0, 0.02) embeddings and free tables (the
-    Nemotron `prompt_embed`, the SenseVoice `embed`, the Cohere `pos_embed`)."""
+    Nemotron `prompt_embed`, the SenseVoice `embed`, the Cohere `pos_embed`,
+    the TTS models' learned positions `pos` / `src_pos` / `tgt_pos` and
+    PocketTTS's `bos`)."""
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("embedding", "prompt_embed", "embed", "pos_embed"):
+        if leaf in ("embedding", "prompt_embed", "embed", "pos_embed", "pos", "src_pos",
+                    "tgt_pos", "bos"):
             p.copy_(torch.randn(p.shape, generator=generator, device=p.device) * 0.02)
         elif leaf == "weight" and p.ndim >= 2:
             fan_in = p[0].numel()

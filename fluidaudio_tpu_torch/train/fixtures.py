@@ -1,12 +1,14 @@
 """Trained fixture evaluations on the port: CTC, SenseVoice, Paraformer,
-Cohere, VAD, the diarizers, LS-EEND and Kokoro TTS.
+Cohere, VAD, the diarizers, LS-EEND and the TTS backends (Kokoro,
+PocketTTS, StyleTTS2).
 
 Copies of those parts of `fluidaudio_tpu/train/fixtures.py` (that module
 imports JAX): the same seeds, corpora and gates, run through the port's
 `CtcKeywordSpotter`, `ctc_greedy_decode`, `ctc_beam_search`,
 `ctc_token_rescore`, `SenseVoiceManager`, `ParaformerManager`,
 `CoherePipeline`, `VadManager`, `OfflineDiarizerManager`, `DiarizerManager`,
-`SortformerDiarizer`, `LSEENDDiarizer` and `KokoroManager` on `device`
+`SortformerDiarizer`, `LSEENDDiarizer`, `KokoroManager`, `PocketTtsManager` and
+`StyleTTS2Manager` on `device`
 (None: the GPU; pass "cpu" to run on the CPU). The fixtures themselves are
 the JAX package's committed npz (`fluidaudio_tpu/assets/trained_tiny/`),
 read as files.
@@ -559,5 +561,188 @@ def eval_tts_fixture(seed: int = 8642, n_utts: int = 3, *, device=None) -> dict:
             torch.tensor([len(tok)], dtype=torch.int32, device=tts.device), style_s, 1.0)
         got = dur[0, : len(tok)].cpu().numpy()
         dur_errs.append(float(np.abs(got - tts_durations(len(ids))).mean()))
+    return {"roundtrip_wer_avg": float(np.mean(rates)),
+            "dur_mae_frames": float(np.mean(dur_errs)), "utterances": utterances}
+
+
+def tts_target_audio(word_ids: np.ndarray, total_frames: int) -> np.ndarray:
+    """Construction target at 24 kHz: per-frame silence/tone layout matching
+    `tts_durations`, tone frequencies on the ASR corpus grid (`word_freq`)."""
+    from fluidaudio_tpu_torch.models.kokoro import HOP, SAMPLE_RATE
+
+    parts = [np.zeros(TTS_PAD_FRAMES * HOP, np.float32)]
+    for k, w in enumerate(word_ids):
+        n = TTS_WORD_FRAMES * HOP
+        t = np.arange(n) / SAMPLE_RATE
+        sig = 0.35 * np.sin(2 * np.pi * tc.word_freq(int(w)) * t)
+        ramp = int(0.010 * SAMPLE_RATE)
+        env = np.ones(n, np.float32)
+        env[:ramp] = 0.5 - 0.5 * np.cos(np.pi * np.arange(ramp) / ramp)
+        env[-ramp:] = env[:ramp][::-1]
+        parts.append((sig * env).astype(np.float32))
+        gap = TTS_GAP_FRAMES if k + 1 < len(word_ids) else TTS_PAD_FRAMES
+        parts.append(np.zeros(gap * HOP, np.float32))
+    audio = np.concatenate(parts)
+    out = np.zeros(total_frames * HOP, np.float32)
+    out[: min(audio.size, out.size)] = audio[: out.size]
+    return out
+
+
+def _tiny_asr(device):
+    from fluidaudio_tpu_torch.asr.config import ASRConfig
+    from fluidaudio_tpu_torch.asr.manager import AsrManager
+    from fluidaudio_tpu_torch.models.zoo import AsrModels
+
+    return AsrManager(
+        AsrModels.load("test-tiny", checkpoint_dir=trained_assets_dir() / "asr",
+                       allow_random_init=False, device=device),
+        ASRConfig(),
+    )
+
+
+# --------------------------------------------------------------- PocketTTS
+#: roundtrip gate of the trained PocketTTS fixture (as for Kokoro's; the JAX
+#: reference itself does not clear it, ROADMAP Queue C)
+POCKET_ROUNDTRIP_WER_GATE = 0.02
+
+
+def pocket_tiny_config():
+    """The JAX package's tiny PocketTtsConfig of the trained `pocket`
+    fixture: the full streaming topology (flow-LM with a KV cache over 512
+    positions, 8-step Euler flow decoder, a Mimi codec whose hop is 600
+    samples)."""
+    from fluidaudio_tpu_torch.models.mimi import MimiConfig
+    from fluidaudio_tpu_torch.models.pocket_tts import PocketTtsConfig
+
+    mimi = MimiConfig(
+        latent_dim=8, dim=32, n_filters=4, ratios=(5, 5, 4, 3), kernel=5,
+        trans_layers=2, trans_heads=4, trans_ff=64, trans_context=16,
+    )
+    return PocketTtsConfig(
+        vocab_size=128, d_model=64, n_layers=2, n_heads=4, ff_hidden=96,
+        flow_blocks=2, flow_hidden=64, max_frames=160, mimi=mimi,
+    )
+
+
+def pocket_voice_reference() -> np.ndarray:
+    """Deterministic 24 kHz voice-cloning sample (three tone words, ~1.3 s),
+    the fixture's training prompt clip."""
+    return tts_target_audio(np.asarray([2, 9, 14]), total_frames=52)
+
+
+def load_pocket_manager(*, device=None):
+    from fluidaudio_tpu_torch.tts.pocket_manager import PocketTtsManager
+
+    return PocketTtsManager(config=pocket_tiny_config(),
+                            checkpoint_dir=trained_assets_dir() / "pocket", device=device)
+
+
+def eval_pocket_fixture(seed: int = 7531, n_utts: int = 3, *, device=None) -> dict:
+    """The PocketTTS streaming-AR contract: text -> normalize/chunk -> char
+    tokens -> KV prefill -> per-frame flow-LM step + EOS threshold -> Euler
+    flow decode -> streaming Mimi decode, then CLOSED LOOP through the
+    trained ASR fixture; also `clone_voice` from the reference clip. Each
+    utterance's (text, transcript) under `"utterances"`."""
+    from fluidaudio_tpu_torch.tts.roundtrip import TINY_CORPUS_CHANNEL, tts_asr_roundtrip
+
+    tts = load_pocket_manager(device=device)
+    asr = _tiny_asr(device)
+    rs = np.random.RandomState(seed)
+    rates, utterances = [], []
+    for _ in range(n_utts):
+        ids = rs.randint(0, tc.N_WORDS, size=int(rs.randint(2, 7)))
+        r = tts_asr_roundtrip(tts, asr, tc.transcript_text(ids), channel=TINY_CORPUS_CHANNEL)
+        rates.append(r.wer)
+        utterances.append((r.text, r.transcript))
+    tts.clone_voice(pocket_voice_reference(), "cloned")
+    r = tts_asr_roundtrip(tts, asr, tc.transcript_text(np.asarray([1, 8])), voice="cloned",
+                          channel=TINY_CORPUS_CHANNEL)
+    utterances.append((r.text, r.transcript))
+    return {"roundtrip_wer_avg": float(np.mean(rates)), "clone_roundtrip_wer": float(r.wer),
+            "utterances": utterances}
+
+
+# -------------------------------------------------------------- StyleTTS2
+#: roundtrip gate of the trained StyleTTS2 fixture
+STYLETTS2_ROUNDTRIP_WER_GATE = 0.02
+
+
+def styletts2_tiny_config():
+    """The JAX package's tiny StyleTts2Config of the trained `styletts2`
+    fixture: the full 4-program topology, vocab 178 (the real TextCleaner
+    table), rates multiplying to 300 (HOP 600), f0_scale 500."""
+    from fluidaudio_tpu_torch.models.styletts2 import StyleTts2Config
+
+    return StyleTts2Config(
+        d_model=64, style_dim=32, n_layer=1, max_dur=16,
+        albert_emb=32, albert_hidden=64, albert_heads=4, albert_inter=128,
+        albert_layers=2,
+        style_dim_in=8, style_max_conv_dim=32,
+        diff_width=64, diff_layers=2, diff_heads=4,
+        decoder_hidden=64, asr_res_ch=16,
+        upsample_initial=64, upsample_rates=(20, 15),
+        upsample_kernels=(40, 31),
+        resblock_kernels=(3, 7), resblock_dilations=((1, 3), (1, 3)),
+        max_frames=256, max_tokens=64,
+        f0_scale=500.0,
+    )
+
+
+def styletts2_ref_clip() -> np.ndarray:
+    """Deterministic 24 kHz style-reference clip (three tone words, ~1.3 s),
+    the fixture's training reference."""
+    return tts_target_audio(np.asarray([2, 9, 14]), total_frames=52)
+
+
+def load_styletts2_manager(*, device=None):
+    from fluidaudio_tpu_torch.tts.styletts2_manager import StyleTTS2Manager
+
+    mgr = StyleTTS2Manager(config=styletts2_tiny_config(),
+                           checkpoint_dir=trained_assets_dir() / "styletts2", device=device)
+    # tone words resolve through the custom-lexicon slot of the shared
+    # English G2P cascade (the manager's phonemizer shares this instance)
+    mgr.g2p.custom_lexicon = tts_lexicon()
+    return mgr
+
+
+def eval_styletts2_fixture(seed: int = 6174, n_utts: int = 3, *, device=None) -> dict:
+    """The StyleTTS2 synthesis contract: text -> phonemizer -> TextCleaner
+    ids -> text program -> ref-mel style encoders + ADPM2 style sampling ->
+    blend -> duration rounding -> acoustic program -> 24 kHz audio, then
+    CLOSED LOOP through the trained ASR fixture; the duration head's mean
+    absolute error in frames; each utterance's (text, transcript) under
+    `"utterances"`."""
+    from fluidaudio_tpu_torch.models.styletts2 import blend_style, round_durations
+    from fluidaudio_tpu_torch.tts.roundtrip import TINY_CORPUS_CHANNEL, tts_asr_roundtrip
+    from fluidaudio_tpu_torch.tts.styletts2_manager import text_cleaner_encode
+
+    tts = load_styletts2_manager(device=device)
+    asr = _tiny_asr(device)
+    ref = styletts2_ref_clip()
+    rs = np.random.RandomState(seed)
+    rates, dur_errs, utterances = [], [], []
+    for u in range(n_utts):
+        ids = rs.randint(0, tc.N_WORDS, size=int(rs.randint(2, 8)))
+        text = tc.transcript_text(ids)
+        r = tts_asr_roundtrip(tts, asr, text, reference_audio=ref, noise_seed=u,
+                              channel=TINY_CORPUS_CHANNEL)
+        rates.append(r.wer)
+        utterances.append((r.text, r.transcript))
+
+        # duration head accuracy through the predict program, at JAX's
+        # 64-token grid
+        tok = text_cleaner_encode(tts.phonemizer.phonemize(text))
+        tokens = np.zeros((1, 64), np.int64)
+        tokens[0, : len(tok)] = tok
+        lengths = torch.tensor([len(tok)], dtype=torch.int32, device=tts.device)
+        bert_dur, d_en, _ = tts.text_prog(torch.as_tensor(tokens).to(tts.device), lengths)
+        s_pred, ref_s = tts.styles(bert_dur, lengths, ref, u)
+        _, s128 = blend_style(s_pred, ref_s)
+        _, dur_logits = tts.predict_prog(d_en, torch.as_tensor(s128).to(tts.device), lengths)
+        got = round_durations(dur_logits[0].cpu().numpy(), len(tok))
+        want = np.concatenate([[TTS_PAD_FRAMES],
+                               np.asarray([[TTS_WORD_FRAMES, TTS_GAP_FRAMES]
+                                           for _ in ids]).reshape(-1)[:-1]])
+        dur_errs.append(float(np.abs(got - want).mean()))
     return {"roundtrip_wer_avg": float(np.mean(rates)),
             "dur_mae_frames": float(np.mean(dur_errs)), "utterances": utterances}

@@ -20,8 +20,8 @@ caseSensitive: {word: [tokens]}}`, reference
 `TTS/Shared/LexiconAssetCache.swift:19-23`); absent cache degrades to the
 seed lexicon + rules.
 
-The English part of the JAX package's `tts/g2p.py`; `MultilingualG2P` (over
-the ByT5 / seq2seq G2P models) is not ported yet (ROADMAP Queue A).
+A copy of the JAX package's `tts/g2p.py`, with the BART fallback and
+`MultilingualG2P` (over the ByT5 / seq2seq G2P models) on a torch device.
 """
 
 from __future__ import annotations
@@ -331,3 +331,129 @@ def kokoro_voice_to_language(voice: str) -> str | None:
     if len(voice) < 2 or voice[1] not in ("f", "m"):
         return None
     return _KOKORO_VOICE_LANG.get(voice[0])
+
+
+class MultilingualG2P:
+    """Batched multilingual word phonemizer over the byte-level seq2seq.
+
+    Behavioral parity: reference `G2P/MultilingualG2PModel.swift:9`
+    (ByT5 CharsiuG2P actor singleton with per-language prompts + result
+    cache). The words not cached go to the device as one batch for one
+    greedy decode (no host read per token); phoneme ids map to IPA
+    codepoints via the model's output table. Without trained weights
+    (registry cache empty) outputs are untrained-model noise — the API,
+    batching, and caching layers are what this class pins down.
+
+    `params`: a flax parameter tree of the compact seq2seq (numpy), loaded
+    through `utils/weights.py`; None draws seeded random weights on `device`
+    (None = the GPU). A converted ByT5 checkpoint (`byt5.npz` + HF
+    `config.json` in `checkpoint_dir`, or the model cache's CharsiuG2P
+    folder when it is None) takes precedence.
+    """
+
+    def __init__(self, params=None, rng_seed: int = 0,
+                 checkpoint_dir: str | Path | None = None, device=None):
+        import torch
+
+        from fluidaudio_tpu_torch.models.g2p_seq2seq import G2P_BASE, G2pSeq2Seq
+        from fluidaudio_tpu_torch.models.zoo import random_init_
+        from fluidaudio_tpu_torch.utils.device import resolve_device
+        from fluidaudio_tpu_torch.utils.weights import from_jax_params, load_npz, load_state
+
+        self.device = resolve_device(device)
+        # real CharsiuG2P ByT5 weights when converted + cached; otherwise
+        # the compact seq2seq with seeded random init keeps the API live.
+        self.byt5 = None
+        base = Path(checkpoint_dir) if checkpoint_dir else None
+        if base is None:
+            from fluidaudio_tpu_torch.registry import DownloadUtils, Repo
+
+            base = DownloadUtils.repo_dir(Repo.CHARSIU_G2P)
+        ckpt = base / "byt5.npz"
+        cfg_json = base / "config.json"
+        if ckpt.exists() and cfg_json.exists():
+            from fluidaudio_tpu_torch.models.byt5_g2p import ByT5G2P, config_from_hf
+
+            self.byt5 = ByT5G2P(config_from_hf(json.loads(cfg_json.read_text())),
+                                device=self.device).eval()
+            load_state(self.byt5, load_npz(ckpt))
+
+        self.model = None
+        if params is not None or self.byt5 is None:
+            self.model = G2pSeq2Seq(G2P_BASE, device=self.device).eval()
+            if params is None:
+                random_init_(self.model, torch.Generator(device=self.device).manual_seed(rng_seed))
+            else:
+                load_state(self.model, from_jax_params(params))
+        self._cache: dict[tuple[str, str], str] = {}
+
+    # phoneme id -> IPA char: ids 3.. map to a compact IPA codepoint table
+    _IPA_TABLE = (
+        "abcdefghijklmnopqrstuvwxyz"
+        "æɑɒɔəɚɛɜɝɪɨʊʉʌʏøœɶɐɯɤeiouy"
+        "ŋɲɳɴʃʒʂʐɕʑçʝxɣχʁħʕhɦθðszfvɸβ"
+        "pbtdkɡqɢʔmɱnɾrʀʙlɫʎʟjwɥɹɻˈˌːˑ̃"
+    )
+
+    def _ids_to_ipa(self, ids) -> str:
+        from fluidaudio_tpu_torch.models.g2p_seq2seq import BOS, EOS, PAD
+
+        out = []
+        for i in ids:
+            i = int(i)
+            if i in (BOS, PAD):
+                continue
+            if i == EOS:
+                break
+            idx = i - 3
+            if 0 <= idx < len(self._IPA_TABLE):
+                out.append(self._IPA_TABLE[idx])
+        return "".join(out)
+
+    def decode_ids(self, words: list[str], language: str = "eng-us"):
+        """The model's greedy token ids for `words` (one device batch, one
+        copy back): ByT5 -> [n, 48]; the compact seq2seq -> [n, 48] with
+        the BOS in column 0."""
+        import numpy as np
+        import torch
+
+        if self.byt5 is not None:
+            from fluidaudio_tpu_torch.models.byt5_g2p import byt5_greedy_decode, encode_bytes
+
+            # CharsiuG2P prompt format: "<lang>: word"
+            max_len = max(len(f"<{language}>: {w}".encode()) for w in words) + 2
+            rows = np.stack([encode_bytes(f"<{language}>: {w}", max_len)[0] for w in words])
+            enc = torch.as_tensor(rows, dtype=torch.int64, device=self.device)
+            return byt5_greedy_decode(self.byt5, enc, enc != 0).cpu().numpy()
+        from fluidaudio_tpu_torch.models.g2p_seq2seq import encode_word, g2p_greedy_decode
+
+        rows, lens = zip(*(encode_word(w, language_prefix=G2P_LANGUAGES[language])
+                           for w in words))
+        tokens, _ = g2p_greedy_decode(
+            self.model, torch.as_tensor(np.stack(rows), dtype=torch.int64, device=self.device),
+            torch.as_tensor(np.array(lens), dtype=torch.int64, device=self.device))
+        return tokens.cpu().numpy()
+
+    def phonemize_words(self, words: list[str], language: str = "eng-us") -> list[str]:
+        """Batch-phonemize; per-(word, language) results are cached."""
+        if G2P_LANGUAGES.get(language) is None:
+            raise ValueError(f"unknown G2P language {language!r}; "
+                             f"see G2P_LANGUAGES ({len(G2P_LANGUAGES)} codes)")
+        todo = [w for w in words if (w, language) not in self._cache]
+        if todo:
+            out = self.decode_ids(todo, language)
+            if self.byt5 is not None:
+                from fluidaudio_tpu_torch.models.byt5_g2p import decode_bytes
+
+                texts = [decode_bytes(row) for row in out]
+            else:
+                texts = [self._ids_to_ipa(row) for row in out]
+            for w, t in zip(todo, texts):
+                self._cache[(w, language)] = t
+        return [self._cache[(w, language)] for w in words]
+
+    def phonemize(self, text: str, language: str = "eng-us") -> str:
+        import re
+
+        words = [w for w in re.split(r"[^\w']+", text.lower()) if w]
+        return " ".join(self.phonemize_words(words, language))

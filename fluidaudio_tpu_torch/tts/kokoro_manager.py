@@ -18,9 +18,10 @@ seeded to `rng_seed + 1` afresh for every chunk, as JAX uses one key for
 every chunk of every call, so two calls on one text give the same samples.
 The peak normalisation runs once over the whole concatenation.
 
-Variants: `english` (Misaki lexicon + the BART fallback when cached) and
-`japanese` (phoneme input only, no peak normalisation). `mandarin` raises
-NotImplementedError until its G2P is ported (ROADMAP Queue A).
+Variants: `english` (Misaki lexicon + the BART fallback when cached),
+`mandarin` (Hanzi through `MandarinG2P` to bopomofo, with the g2pW BERT
+polyphone classifier on `device` when cached; phoneme strings pass through)
+and `japanese` (phoneme input only, no peak normalisation).
 
 Weights: `checkpoint_dir` holds `text.npz`, `audio.npz` and the voices;
 `checkpoint_dir=None` reads the model cache's `Repo.KOKORO_ANE*` folder, as
@@ -128,6 +129,22 @@ _VARIANT_DEFAULT_VOICE = {
 }
 
 
+def _seed_zh_vocab() -> dict[str, int]:
+    """Built-in stand-in for `ANE-zh/vocab.json` (bopomofo initials/finals,
+    special hanzi finals, tone digits, punctuation). A real vocab.json in
+    the asset cache always takes precedence."""
+    from fluidaudio_tpu_torch.tts.mandarin_g2p import (
+        _FINAL_MAP,
+        _INITIAL_MAP,
+        ALLOWED_PUNCTUATION,
+    )
+
+    symbols = [_PAD] + sorted(ALLOWED_PUNCTUATION) + list("12345")
+    symbols += list(dict.fromkeys(_INITIAL_MAP.values()))
+    symbols += list(dict.fromkeys(_FINAL_MAP.values()))
+    return {s: i for i, s in enumerate(symbols)}
+
+
 @dataclass
 class KokoroStageTimings:
     g2p_seconds: float = 0.0
@@ -165,10 +182,6 @@ class KokoroManager:
     ):
         if variant not in VARIANTS:
             raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
-        if variant == "mandarin":
-            raise NotImplementedError(
-                "the mandarin Kokoro variant waits for the port's Mandarin G2P "
-                "(mandarin_g2p, mandarin_numbers, bert_g2pw: ROADMAP Queue A, the G2P slice)")
         self.variant = variant
         self.default_voice = default_voice or _VARIANT_DEFAULT_VOICE[variant]
         self.cfg = config or KokoroConfig()
@@ -182,6 +195,7 @@ class KokoroManager:
             else DownloadUtils.repo_dir(_VARIANT_REPO[variant])
         )
         self.g2p = None
+        self.mandarin_g2p = None
         self.vocab = dict(VOCAB)
         if variant == "english":
             # full Misaki lexicon + converted BART fallback when the kokoro
@@ -191,6 +205,20 @@ class KokoroManager:
             if self.g2p.load_misaki_cache(lex_base):
                 logger.info("loaded Misaki lexicon cache (%d entries)",
                             len(self.g2p.misaki_lower))
+        elif variant == "mandarin":
+            from fluidaudio_tpu_torch.tts.mandarin_g2p import (
+                MandarinG2P,
+                MandarinG2pw,
+                MandarinJiebaHmm,
+            )
+
+            g2pw = (MandarinG2pw.load(lex_base / "g2pw", device=self.device)
+                    or MandarinG2pw.load(lex_base, device=self.device))
+            self.mandarin_g2p = MandarinG2P(
+                lexicon_path=lex_base / "mandarin_lexicon.json", g2pw=g2pw,
+                jieba_hmm=MandarinJiebaHmm.load(lex_base / "jieba_hmm.json"),
+            )
+            self.vocab = self._load_vocab(lex_base) or _seed_zh_vocab()
         else:  # japanese: phoneme input only, IPA vocab like english
             self.vocab = self._load_vocab(lex_base) or dict(VOCAB)
         if config is None and self.vocab:
@@ -270,15 +298,31 @@ class KokoroManager:
         if self.g2p is not None:
             self.g2p.custom_lexicon = dict(entries)
 
+    def set_mandarin_custom_lexicon(self, entries: dict[str, list[str]]) -> None:
+        """User word -> pinyin/@bopomofo token overrides, slotted at the
+        front of the MandarinG2P cascade (ref setMandarinCustomLexicon).
+        Only meaningful for the mandarin variant."""
+        if self.mandarin_g2p is not None:
+            self.mandarin_g2p.set_custom_lexicon(entries)
+
     def phonemes_for(self, text: str) -> str:
         """Resolve the exact phoneme string `synthesize` would feed the
         chain (reference `phonemes(for:)`, KokoroAneManager.swift:237-261).
 
-        English: Misaki-lexicon-first with BART fallback. Japanese: no text
-        frontend — raises; feed pre-computed IPA via
-        `synthesize_from_phonemes`."""
+        English: Misaki-lexicon-first with BART fallback. Mandarin: the
+        MandarinG2P bopomofo pipeline for Hanzi input, pass-through for
+        strings already in phoneme form. Japanese: no text frontend —
+        raises; feed pre-computed IPA via `synthesize_from_phonemes`."""
         if self.variant == "english":
             return self.g2p.phonemize(text)
+        if self.variant == "mandarin":
+            from fluidaudio_tpu_torch.tts.mandarin_g2p import MandarinG2P
+
+            if MandarinG2P.looks_like_hanzi(text):
+                return self.mandarin_g2p.phonemize_bopomofo(text)
+            # no Hanzi -> caller already supplied bopomofo; pass through so
+            # power users can override pronunciation manually
+            return text
         raise ValueError(
             "japanese variant has no text G2P frontend; call "
             "synthesize_from_phonemes() with pre-computed IPA"

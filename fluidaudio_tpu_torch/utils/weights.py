@@ -16,6 +16,7 @@ and maps each to a torch `state_dict` key and layout:
   `kernel [H, Dh, d]` -> `weight [d, H*Dh]`. A 3-D kernel under those names
   is never a Conv1d (the two have the same rank, so the name decides).
 - flax Conv2d `kernel [kh, kw, in/g, out]`  -> `weight [out, in/g, kh, kw]`
+  (StyleTTS2's style encoders: 3x3, 5x5 and 1x1)
 - the transposed-conv kernels that Kokoro (and StyleTTS2) keep as free
   params, `[k, in/g, out]` (the JAX package applies them as an
   input-dilated convolution with the kernel flipped in time), by name into
@@ -23,8 +24,14 @@ and maps each to a torch `state_dict` key and layout:
   (depthwise, groups = out: `[3, 1, C]` -> `[C, 1, 3]`) and `up_kernel_<i>`
   (groups 1: `[k, in, out]` -> `[in, out, k]`). The generic 3-D rule would
   give `[out, in/g, k]`, which fits the shape wherever in == out.
-- the Snake `alpha1_<i>` / `alpha2_<i>` `[1, 1, C]` (for [B, T, C]
-  activations) -> `[1, C, 1]` (the port's channels-first [B, C, T]).
+- Mimi's streaming transposed convs (`StreamConvTr`) keep the same
+  `[k, in/g, out]` under the leaf `kernel` of their module, so they are
+  mapped by the owner's name into `F.conv_transpose1d`'s layout as a
+  `weight`: `upsample` (depthwise, groups = out) and `up_<i>` (groups 1).
+  The generic 3-D rule would read them as a Conv1d.
+- the Snake `alpha1_<i>` / `alpha2_<i>` (Kokoro, StyleTTS2) and `alpha<i>`
+  (Supertonic-3's vocoder) `[1, 1, C]` (for [B, T, C] activations) ->
+  `[1, C, 1]` (the port's channels-first [B, C, T]).
 - flax LayerNorm `scale`                    -> `weight`
 - JAX `Int8Dense` `kernel_q [in, out]` int8 -> `weight_q [out, in]` int8
   (K contiguous, the layout the int8 kernel reads), `kernel_scale [1, out]`
@@ -51,7 +58,8 @@ from torch import nn
 
 _DENSE_GENERAL_IN = ("query", "key", "value")
 _UP_KERNEL = re.compile(r"up_kernel_\d+")
-_SNAKE_ALPHA = re.compile(r"alpha[12]_\d+")
+_SNAKE_ALPHA = re.compile(r"alpha[12]_\d+|alpha\d+")
+_STREAM_CONVTR = re.compile(r"upsample|up_\d+")
 
 
 def conv_transpose_weight(kernel: np.ndarray, groups: int) -> np.ndarray:
@@ -80,6 +88,9 @@ def _torch_key_and_value(flax_key: str, value: np.ndarray) -> tuple[str, np.ndar
         value = conv_transpose_weight(value, groups=value.shape[2])
     elif _UP_KERNEL.fullmatch(leaf) and value.ndim == 3:
         value = conv_transpose_weight(value, groups=1)
+    elif _STREAM_CONVTR.fullmatch(owner) and leaf == "kernel" and value.ndim == 3:
+        value = conv_transpose_weight(value, groups=value.shape[2] if owner == "upsample" else 1)
+        parts[-1] = "weight"
     elif _SNAKE_ALPHA.fullmatch(leaf) and value.ndim == 3:
         value = value.reshape(1, -1, 1)
     elif leaf == "kernel":

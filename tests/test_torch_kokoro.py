@@ -40,9 +40,9 @@ on "w15 w0" the two peaks (same sample) differ by 7.4%, which is all but
 JAX's (see FLIP_TEXT for the one word where JAX's jit slips). Port on port:
 the JAX suite's `test_synthesize_from_phonemes_matches_text_path`
 (`array_equal`) and `test_output_is_tonal_at_word_frequencies`, and the
-cases of `tests/test_tts_kokoro.py` (but the mandarin ones, which wait for
-the Mandarin G2P, and the real-weights roundtrip) and
-`tests/test_tts_chain.py::test_kokoro_chain`.
+cases of `tests/test_tts_kokoro.py` (the mandarin variant's included; but
+the real-weights roundtrip) and `tests/test_tts_chain.py::test_kokoro_chain`.
+The mandarin variant gives JAX's bopomofo and phoneme ids on Hanzi input.
 """
 
 from __future__ import annotations
@@ -502,8 +502,18 @@ def test_two_calls_give_equal_samples(managers):
 
 
 def test_mandarin_waits_for_its_g2p():
-    with pytest.raises(NotImplementedError, match="Mandarin G2P"):
-        KokoroManager(variant="mandarin", config=pk.KokoroConfig(**TINY), device="cpu")
+    """The mandarin variant no longer waits for its G2P: on Hanzi input
+    (numbers, polyphones, sandhi, punctuation) it gives JAX's bopomofo and
+    phoneme ids, and its seed vocabulary is JAX's."""
+    from fluidaudio_tpu.tts.kokoro_manager import KokoroManager as JaxKokoroManager
+
+    text = "今天是2024年3月15日，我们一起去银行。你好，我不想说话！"
+    jm = JaxKokoroManager(variant="mandarin", config=jk.KokoroConfig(**TINY))
+    pm = KokoroManager(variant="mandarin", config=pk.KokoroConfig(**TINY), device="cpu")
+    assert pm.vocab == jm.vocab and pm.default_voice == jm.default_voice
+    assert pm.phonemes_for(text) == jm.phonemes_for(text)
+    assert pm.encode_phonemes(pm.phonemes_for(text)) == jm.encode_phonemes(jm.phonemes_for(text))
+    assert pm.phonemes_for("ㄋㄧ3ㄏㄠ3") == "ㄋㄧ3ㄏㄠ3"
 
 
 def test_default_device_is_the_card():
@@ -530,10 +540,11 @@ KOKORO_EDITS = (
     ("mgr_mod.KokoroManager(config=cfg)", 'mgr_mod.KokoroManager(config=cfg, device="cpu")'),
     ('KokoroManager(variant="japanese", config=KokoroConfig(**_TINY_CFG))',
      'KokoroManager(variant="japanese", config=KokoroConfig(**_TINY_CFG), device="cpu")'),
+    ('KokoroManager(variant="mandarin", config=KokoroConfig(**_TINY_CFG))',
+     'KokoroManager(variant="mandarin", config=KokoroConfig(**_TINY_CFG), device="cpu")'),
 )
-_MANDARIN = ("TestVariants.test_mandarin",)
 KOKORO_CASES = [c for c in jax_cases("test_tts_kokoro.py", edits=KOKORO_EDITS, fixtures=True)
-                if not c.id.startswith(_MANDARIN + ("TestAsrRoundtripRealWeights",))]
+                if not c.id.startswith("TestAsrRoundtripRealWeights")]
 CHAIN_CASES = jax_cases("test_tts_chain.py", ("tts", "utils"), ("test_kokoro_chain",),
                         edits=(("KokoroManager().synthesize(TEXT)",
                                 'KokoroManager(device="cpu").synthesize(TEXT)'),),
@@ -560,8 +571,9 @@ def test_jax_kokoro_case_on_the_port(case, request):
 
 
 def test_cases_cover_the_jax_suites():
-    # test_tts_kokoro.py: 26 cases, less 4 mandarin and 1 real-weights roundtrip
-    assert len(KOKORO_CASES) == 26 - 4 - 1
+    # test_tts_kokoro.py: 26 cases (4 of them mandarin), less the real-weights roundtrip
+    assert len(KOKORO_CASES) == 26 - 1
+    assert sum(c.id.startswith("TestVariants.test_mandarin") for c in KOKORO_CASES) == 4
     assert [c.id for c in CHAIN_CASES] == ["test_kokoro_chain"]
     assert len(TRAINED_CASES) == 2
 
