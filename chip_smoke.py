@@ -12,7 +12,8 @@ line is not printed:
      build both kernels from `fluidaudio_tpu_torch/csrc/` (one nvcc each, in
      parallel) and the FLAC decoder, the fastcluster library and the ITN
      engine from `native/{flac,fastcluster,itn}/` (the host C++ compiler,
-     beside them), and
+     beside them) and the sysinfo shim from `native/sysinfo/sysinfo.c` (the
+     host C compiler), and
      what ptxas reports of the attention kernel and the int8 GEMM
      (registers, spills, shared memory);
   2. the rel-pos attention kernel against its plain PyTorch version on the
@@ -173,10 +174,28 @@ line is not printed:
      Supertonic-3 (`SUPERTONIC3_BASE`, 8 steps); timing (card name and
      power limit on every line): ms per request, RTFx, launches, device busy,
      idle share and peak memory; then the three at full width, reduced
-     depth, card against CPU (within 1e-4 relative L2).
+     depth, card against CPU (within 1e-4 relative L2);
+ 19. the CLI (`fluidaudio_tpu_torch/cli/`), in-process through `main()`
+     with each return code checked: `synthetic-guardrail` on the card over
+     the thirteen sections the reference passes (`pins` included) with rc
+     0 and every trained section's numbers equal to the port's CPU run of
+     the same sections, then over `tts,pocket,styletts2` (the reference
+     fails those gates at every commit) with rc 1, the CPU's failed gates
+     and the CPU's numbers (the Kokoro and StyleTTS2 roundtrip WERs, whose
+     audio follows the F0 track's last ulps, the CPU's gate outcome); `transcribe --version v3 --allow-random-init`
+     on a 30 s file, its text that of `AsrManager.transcribe` on the card;
+     `benchmark --workload all --batch 128` (its four metric lines);
+     `streaming-latency-benchmark --chunks 64 --iters 1` at the three tiers;
+     `diarize --mode sortformer --rttm` on 60 s, `tts-asr-verify
+     --trained-fixture` and `normalize`; every command counted (the
+     attention kernel once per layer of each encoder call whose head width
+     it takes: 24 per v3 call, 17 per Sortformer v2 call; the plain version
+     only at the widths it does not take; no int8 launch), profiled (all
+     but the streaming probe, whose ~2 x 10^6 launches the profiler takes
+     minutes to read) and timed (card name and power limit on every line).
 
 The line before the last is the kernel record (JSON, with each kernel's
-launches on its main path and on each path of phases 11-18, the plain
+launches on its main path and on each path of phases 11-19, the plain
 attention's calls on the paths that take it, bound and times); the last
 line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -184,6 +203,7 @@ line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -342,7 +362,7 @@ def set_int8_matmul(encoder, fn) -> None:
 def phase_device(attn, i8) -> tuple[str, str]:
     from concurrent.futures import ThreadPoolExecutor
 
-    from fluidaudio_tpu_torch.native import cxx, fastcluster, flac, itn
+    from fluidaudio_tpu_torch.native import cxx, fastcluster, flac, itn, sysinfo
     from fluidaudio_tpu_torch.ops import build
 
     smi = subprocess.run(
@@ -350,14 +370,16 @@ def phase_device(attn, i8) -> tuple[str, str]:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
-    with ThreadPoolExecutor(3) as pool:  # the host C++ builds beside the two nvcc
+    with ThreadPoolExecutor(4) as pool:  # the host C/C++ builds beside the two nvcc
         flac_build = pool.submit(flac.build_library)
         fc_build = pool.submit(fastcluster.build_library)
         itn_build = pool.submit(itn.build_library)
+        sysinfo_build = pool.submit(sysinfo.build_library)
         built = build.build(attn.KERNEL_SOURCE, i8.KERNEL_SOURCE)
         flac_lib, flac_s = flac_build.result()
         fc_lib, fc_s = fc_build.result()
         itn_lib, itn_s = itn_build.result()
+        sysinfo_lib, sysinfo_s = sysinfo_build.result()
     compiler = subprocess.run([cxx.compiler(), "--version"], capture_output=True, text=True,
                               timeout=60, check=True).stdout.splitlines()[0]
     attn_lib = attn.load_library()
@@ -367,7 +389,9 @@ def phase_device(attn, i8) -> tuple[str, str]:
     print(f"phase 1 device: {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| kernel builds (parallel nvcc): {builds} | host C++ ({compiler}, "
           f"{' '.join(cxx.CXX_FLAGS)}): FLAC decoder {flac_lib.name} {flac_s:.2f} s, "
-          f"fastcluster {fc_lib.name} {fc_s:.2f} s, ITN {itn_lib.name} {itn_s:.2f} s")
+          f"fastcluster {fc_lib.name} {fc_s:.2f} s, ITN {itn_lib.name} {itn_s:.2f} s | host C "
+          f"({cxx.c_compiler()}, {' '.join(cxx.C_FLAGS)}): sysinfo {sysinfo_lib.name} "
+          f"{sysinfo_s:.2f} s")
     report = ptxas_report(built[attn.KERNEL_SOURCE.name][1], "relpos_attention_wgmma")
     print(f"phase 1 relpos_attention_wgmma (nvcc -Xptxas -v): "
           f"{report or 'built before this run'} | dynamic shared memory "
@@ -471,6 +495,7 @@ def phase_trained_fixture(device) -> None:
     from fluidaudio_tpu_torch.asr.manager import AsrManager
     from fluidaudio_tpu_torch.metrics.wer import wer
     from fluidaudio_tpu_torch.models.zoo import AsrModels
+    from fluidaudio_tpu_torch.train import fixtures as fx
     from fluidaudio_tpu_torch.train import tiny_corpus as tc
 
     def manager(dev, quantization):
@@ -480,11 +505,9 @@ def phase_trained_fixture(device) -> None:
 
     for quantization in ("none", "int8"):
         on_card, on_cpu = manager(device, quantization), manager("cpu", quantization)
-        rs = np.random.RandomState(12345)  # the draws of train/fixtures.eval_asr_fixture
         parts = []
-        for n in (5, 40):
-            ids = rs.randint(0, tc.N_WORDS, size=n)
-            audio = tc.make_utterance(ids, rs)
+        for ids, audio in fx.asr_fixture_utterances():  # the draws of eval_asr_fixture
+            n = len(ids)
             text = on_card.transcribe(audio).text
             rate = wer(tc.transcript_text(ids), text).rate
             if quantization == "none":
@@ -802,33 +825,20 @@ def flac_bytes(pcm: np.ndarray, sample_rate: int = 16_000, block: int = 4096) ->
 
 
 def eou_fixture_utterances(seed: int = 2468, n: int = 6):
-    """The draws of the JAX package's `eval_eou_fixture`: (reference text,
-    audio followed by 1.28 s of open-mic silence)."""
+    """The draws of `eval_eou_fixture` (train/fixtures.eou_fixture_utterances):
+    (reference text, audio followed by 1.28 s of open-mic silence)."""
+    from fluidaudio_tpu_torch.train import fixtures as fx
     from fluidaudio_tpu_torch.train import tiny_corpus as tc
 
-    rs = np.random.RandomState(seed)
-    tail = np.zeros(int(1.28 * 16_000), np.float32)
-    out = []
-    for _ in range(n):
-        ids = rs.randint(0, tc.N_WORDS, size=int(rs.randint(2, 8)))
-        out.append((tc.transcript_text(ids), np.concatenate([tc.make_utterance(ids, rs), tail])))
-    return out
+    return [(tc.transcript_text(ids), audio) for ids, audio in fx.eou_fixture_utterances(seed, n)]
 
 
 def nemotron_fixture_utterances(seed: int = 9753, n: int = 6):
     """The draws of `eval_nemotron_fixture`: (language, reference, audio),
     alternating the fixture's two languages."""
-    from fluidaudio_tpu_torch.train import tiny_corpus as tc
+    from fluidaudio_tpu_torch.train import fixtures as fx
 
-    rs = np.random.RandomState(seed)
-    out = []
-    for u in range(n):
-        lang = "a" if u % 2 == 0 else "b"
-        ids = rs.randint(0, tc.N_WORDS, size=int(rs.randint(2, 8)))
-        audio = tc.make_utterance(ids, rs, lang=lang)
-        words = (tc.word_text(i) if lang == "a" else tc.word_text_b(i) for i in ids)
-        out.append(("aa-AA" if lang == "a" else "bb-BB", " ".join(words), audio))
-    return out
+    return fx.nemotron_fixture_utterances(seed, n)
 
 
 def fixture_managers(dev):
@@ -3268,6 +3278,361 @@ def phase_tts_rest(attn, i8, device, smi: str) -> tuple[dict, list[str]]:
     return paths, lines
 
 
+# ------------------------------------------------------------ phase 19: the CLI
+
+GUARDRAIL_TRAINED = ("asr", "vad", "sortformer", "sensevoice", "paraformer", "cohere", "eou",
+                     "lseend", "nemotron", "ctc", "tts", "pocket", "styletts2", "offline",
+                     "online")
+GUARDRAIL_FAILING = ("tts", "pocket", "styletts2")  # the reference fails these at every commit
+# the gate names each failing family's failures start with (cli/benchmarks.py)
+GUARDRAIL_GATE_NAMES = {"tts": "trained TTS", "pocket": "trained PocketTTS",
+                        "styletts2": "trained StyleTTS2"}
+# the guardrail's roundtrip WERs of the two vocoders with a harmonic source
+# (Kokoro, StyleTTS2): their audio follows the F0 track's last ulps (held
+# stage by stage and end to end against the CPU in phases 17-18), so the
+# trained ASR may read a word otherwise on the card than on the CPU. The
+# roundtrip is split: the card's ASR, fed the CPU's synthesized audio, must
+# give the CPU's transcripts and WER exactly; the card's own end to end
+# roundtrip is held to the CPU's gate outcome. Every other number: the CPU's.
+HARMONIC_ROUNDTRIPS = {"trained_tts_roundtrip_wer_pct": ("KokoroManager", "eval_tts_fixture"),
+                       "trained_styletts2_roundtrip_wer_pct": ("StyleTTS2Manager",
+                                                               "eval_styletts2_fixture")}
+CLI_SPEECH_SECONDS = 30.0
+CLI_STREAM_CHUNKS = 64
+CLI_DIAR_SECONDS = 60.0
+
+
+def run_cli(argv: list[str]) -> tuple[int, list[str]]:
+    """The port's CLI in-process, `main(argv)` with its stdout captured and
+    then printed -> (its return code, its stdout lines)."""
+    import io
+
+    from fluidaudio_tpu_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    for line in buf.getvalue().splitlines():
+        print(f"    | {line}", flush=True)
+    return rc, buf.getvalue().splitlines()
+
+
+def guardrail_json(lines: list[str]) -> dict:
+    return next(json.loads(line) for line in lines if line.startswith("{"))
+
+
+def failed_gates(lines: list[str]) -> list[str]:
+    head = "guardrail QUALITY GATE FAILED: "
+    return next((line[len(head):].split("; ") for line in lines if line.startswith(head)), [])
+
+
+def gate_names(failed: list[str]) -> list[str]:
+    """The failed gates with their numbers masked ("trained TTS roundtrip WER
+    # > #")."""
+    return [re.sub(r"(?<![\w.])\d+(\.\d+)?%?", "#", gate) for gate in failed]
+
+
+def gate_families(failed: list[str]) -> list[str | None]:
+    """The family each failed gate belongs to (None: not a failing family's)."""
+    return [next((fam for fam, name in GUARDRAIL_GATE_NAMES.items()
+                  if gate.startswith(name + " ")), None) for gate in failed]
+
+
+def device_activity(prof) -> tuple[int, float]:
+    """(kernel launches, device busy ms) of a CUDA profile, read from its raw
+    events: the profiler's event tree (`prof.events()`) takes minutes to
+    build at the 10^5-10^6 launches of a CLI command."""
+    spans, kernels = [], 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type().name != "CUDA":
+            continue
+        kernels += not e.name().startswith(("Memcpy", "Memset"))
+        spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    total, end = 0, float("-inf")
+    for start, stop in sorted(spans):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return kernels, total / 1e6
+
+
+def cli_path(attn, i8, smi: str, paths: dict, label: str, argv: list[str], want_rc: int = 0,
+             profiled: bool = True) -> tuple[list[str], list[tuple[int, int]], str]:
+    """One CLI command on the card: every kernel count set to 0 just before
+    and read just after, each ConformerEncoder call's (layers, head width)
+    recorded, the device profiled (launches, busy; the host wall then holds
+    the profiler's cost of tracing each launch) unless `profiled` is False,
+    its host wall and peak memory. The attention kernel must launch once per layer of every
+    encoder call whose head width it takes and the plain version run once
+    per layer of the others (no plain call where the kernel applies); no
+    int8 launch. -> (stdout lines, encoder calls, timing line)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fluidaudio_tpu_torch.models.conformer import ConformerEncoder
+
+    calls, forward = [], ConformerEncoder.forward
+
+    def recorded(self, *a, **k):
+        calls.append((self.cfg.n_layers, self.cfg.head_dim))
+        return forward(self, *a, **k)
+
+    def run():
+        ConformerEncoder.forward = recorded
+        try:
+            with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+                  else contextlib.nullcontext()) as prof:
+                t0 = time.perf_counter()
+                out = run_cli(argv)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            ConformerEncoder.forward = forward
+        return out, prof, wall
+
+    torch.cuda.reset_peak_memory_stats()
+    ((rc, lines), prof, wall), c = counted(attn, i8, run)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(rc == want_rc, f"{label}: rc {rc}, want {want_rc}")
+    takes = [attn.kernel_takes_head_dim(dh) for _, dh in calls]
+    kernel = sum(n for (n, _), k in zip(calls, takes) if k)
+    plain = sum(n for (n, _), k in zip(calls, takes) if not k)
+    check(c["relpos_attention"] == kernel and c["relpos_attention_plain calls"] == plain
+          and c["int8_matmul_fused"] == 0,
+          f"{label}: launches {c}, encoder calls (layers, Dh) {calls}")
+    paths[label] = c
+    if profiled:
+        kernels, busy = device_activity(prof)
+        device = (f"{kernels} kernel launches, {busy:.3f} ms device busy, idle share "
+                  f"{max(0.0, 1 - busy / wall):.3f} (profiled)")
+    else:
+        device = "launches and busy not profiled"
+    line = (f"timing [{smi}] CLI {label}: {wall:.1f} ms per command (host wall, model set-up "
+            f"included), {device}, peak {peak:.2f} GiB; attention {c['relpos_attention']}"
+            f" launches over {len(calls)} encoder calls (layers, Dh: "
+            f"{sorted(set(calls))}), plain {c['relpos_attention_plain calls']}")
+    print(line, flush=True)
+    return lines, calls, line
+
+
+@contextlib.contextmanager
+def roundtrip_tts(wrap):
+    """`tts/roundtrip.py::tts_asr_roundtrip` (which the trained fixtures'
+    evaluations import at call time) with its TTS manager replaced by
+    `wrap(manager)`."""
+    import fluidaudio_tpu_torch.tts.roundtrip as roundtrip
+
+    original = roundtrip.tts_asr_roundtrip
+    roundtrip.tts_asr_roundtrip = lambda tts, asr, text, *a, **k: original(
+        wrap(tts), asr, text, *a, **k)
+    try:
+        yield
+    finally:
+        roundtrip.tts_asr_roundtrip = original
+
+
+class SynthRecorder:
+    """Stands in for a TTS manager: synthesizes through it and keeps each
+    result, by the manager's class name."""
+
+    def __init__(self, tts, kept: dict):
+        self.tts, self.kept = tts, kept.setdefault(type(tts).__name__, [])
+
+    def synthesize(self, text, **kw):
+        self.kept.append(self.tts.synthesize(text, **kw))
+        return self.kept[-1]
+
+
+class SynthReplay:
+    """Stands in for a TTS manager: returns the next kept result of `kept`,
+    an iterator shared by every stand-in of one evaluation."""
+
+    def __init__(self, kept):
+        self.kept = kept
+
+    def synthesize(self, text, **kw):
+        return next(self.kept)
+
+
+def asr_batch_invariance(device, dtype: str) -> tuple[bool, int, int | None]:
+    """The guardrail's `asr_batch_invariant` pin on v3 (seeded random weights)
+    at `dtype`: the token streams at chunk batch 1 and 3 -> (equal, tokens,
+    index of the first difference)."""
+    from fluidaudio_tpu_torch.asr.config import ASRConfig
+    from fluidaudio_tpu_torch.asr.manager import AsrManager
+    from fluidaudio_tpu_torch.models.zoo import AsrModels
+
+    audio = (np.random.RandomState(7).randn(700_000) * 0.1).astype(np.float32)
+    models = AsrModels.load("v3", allow_random_init=True, device=device, dtype=dtype)
+    streams = [[(t.token_id, round(t.start_time, 3)) for t in AsrManager(
+        models, ASRConfig(parallel_chunk_batch=bs)).transcribe(audio).token_timings]
+        for bs in (1, 3)]
+    first = next((i for i, (a, b) in enumerate(zip(*streams)) if a != b),
+                 None if len(streams[0]) == len(streams[1]) else min(map(len, streams)))
+    del models
+    torch.cuda.empty_cache()
+    return streams[0] == streams[1], len(streams[0]), first
+
+
+def write_wav16(path: Path, samples: np.ndarray) -> Path:
+    from fluidaudio_tpu_torch.utils.audio_io import write_wav
+
+    write_wav(path, np.clip(samples, -1, 1), 16_000)
+    return path
+
+
+def phase_cli(attn, i8, device, smi: str) -> tuple[dict, list[str]]:
+    """Phase 19: the port's CLI in-process on the card. `synthetic-guardrail`
+    over the thirteen sections the reference passes (`pins` included): rc 0,
+    each trained section's numbers equal to the port's CPU run, gate by
+    gate; then `--families tts,pocket,styletts2`: rc 1, exactly those
+    families' gates failing, as on the CPU, with the CPU's numbers (the
+    harmonic-source roundtrips: the CPU's gate outcome end to end, and the
+    CPU's WER from the card's ASR on the CPU's audio). `transcribe --version
+    v3 --allow-random-init` on 30 s: the text of `AsrManager.transcribe`
+    on the card, 24 attention launches per encoder call. `benchmark
+    --workload all --batch 128` (four metric lines; 17 launches per
+    Sortformer encoder call), `streaming-latency-benchmark --chunks 64 --iters 1`,
+    `diarize --mode sortformer --rttm`, `tts-asr-verify --trained-fixture`
+    and `normalize`. Every command counted and timed, and profiled but the
+    streaming probe. -> (launches per path, timing lines)."""
+    import tempfile
+
+    from fluidaudio_tpu_torch.asr.config import ASRConfig
+    from fluidaudio_tpu_torch.asr.manager import AsrManager
+    from fluidaudio_tpu_torch.models.zoo import AsrModels
+    from fluidaudio_tpu_torch.train import fixtures as fx
+    from fluidaudio_tpu_torch.train import tiny_corpus as tc
+
+    t0, spent, paths, lines = time.perf_counter(), {}, {}, []
+
+    def lap(what):
+        nonlocal t0
+        spent[what] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    cpu_synth = {}
+    with roundtrip_tts(lambda tts: SynthRecorder(tts, cpu_synth)):
+        rc, out = run_cli(["--device", "cpu", "synthetic-guardrail", "--families",
+                           ",".join(GUARDRAIL_TRAINED)])
+    cpu, cpu_failed = guardrail_json(out), failed_gates(out)
+    families = gate_families(cpu_failed)
+    check(rc == 1 and None not in families and set(families) == set(GUARDRAIL_FAILING),
+          f"guardrail on the CPU: rc {rc}, failed gates {cpu_failed}")
+    lap("guardrail on the CPU")
+
+    passing = [f for f in (*GUARDRAIL_TRAINED, "pins") if f not in GUARDRAIL_FAILING]
+    out, _, line = cli_path(attn, i8, smi, paths, "CLI synthetic-guardrail, 13 sections",
+                            ["synthetic-guardrail", "--families", ",".join(passing)])
+    card = guardrail_json(out)
+    differ = {k: (v, cpu[k]) for k, v in card.items() if k.startswith("trained_") and v != cpu[k]}
+    check(not differ and sum(k.startswith("trained_") for k in card) == 19,
+          f"guardrail trained numbers card vs CPU: {differ}")
+    check(card["backend"] == "cuda" and card["asr_tokens"] > 0, f"guardrail pins: {card}")
+    lines.append(line)
+    lap("guardrail, 13 sections")
+    # the pin `asr_batch_invariant` (chunk batch 1 against 3, v3 random weights):
+    # the same streams in f32, and in the CLI's bf16 what the pin reads
+    f32 = asr_batch_invariance(device, "float32")
+    check(f32[0], f"v3 f32 chunk batch 1 vs 3: token streams differ {f32}")
+    print(f"phase 19 asr_batch_invariant pin (v3, random weights, 43.75 s): bf16 "
+          f"{card['asr_batch_invariant']} ({card['asr_tokens']} tokens), f32 {f32[0]} "
+          f"({f32[1]} tokens, first difference at {f32[2]})", flush=True)
+    lap("batch invariance probe")
+    out, _, line = cli_path(attn, i8, smi, paths, "CLI synthetic-guardrail tts,pocket,styletts2",
+                            ["synthetic-guardrail", "--families", ",".join(GUARDRAIL_FAILING)],
+                            want_rc=1)
+    card_tts = guardrail_json(out)
+    differ = {k: (v, cpu[k]) for k, v in card_tts.items() if k.startswith("trained_")
+              and k not in HARMONIC_ROUNDTRIPS and v != cpu[k]}
+    gate = fx.TTS_ROUNDTRIP_WER_GATE * 100  # the Kokoro and StyleTTS2 gates (both 2%)
+    outcome = {k: (card_tts[k], cpu[k]) for k in HARMONIC_ROUNDTRIPS
+               if (card_tts[k] > gate) != (cpu[k] > gate)}
+    check(not differ and not outcome and gate_names(failed_gates(out)) == gate_names(cpu_failed),
+          f"failing sections card vs CPU: numbers {differ}, gate outcomes {outcome}, gates "
+          f"{failed_gates(out)} vs {cpu_failed}")
+    lines.append(line)
+    # the split roundtrip: the card's trained ASR on the CPU's synthesized audio
+    replayed = {}
+    for key, (manager, evaluate) in HARMONIC_ROUNDTRIPS.items():
+        kept = cpu_synth.get(manager, [])
+        with roundtrip_tts(lambda tts, _kept=iter(kept): SynthReplay(_kept)):
+            run = getattr(fx, evaluate)(device=device)
+        replayed[key] = round(run["roundtrip_wer_avg"] * 100, 2)
+        check(len(kept) == len(run["utterances"]) > 0 and replayed[key] == cpu[key],
+              f"{key}: the card's ASR on the CPU's {len(kept)} synthesized utterances reads "
+              f"{replayed[key]}% ({run['utterances']}), the CPU {cpu[key]}%")
+    print(f"phase 19 guardrail: 13 sections rc 0, {sum(k.startswith('trained_') for k in card)} "
+          f"trained numbers equal to the CPU's; tts,pocket,styletts2 rc 1, the same "
+          f"{len(cpu_failed)} failed gates as the CPU ({gate_names(cpu_failed)}), every number "
+          f"the CPU's but the harmonic-source roundtrips, whose WER (card end to end; card ASR "
+          f"on the CPU's audio; CPU) reads "
+          + ", ".join(f"{k} {card_tts[k]}; {replayed[k]}; {cpu[k]}" for k in HARMONIC_ROUNDTRIPS),
+          flush=True)
+    lap("guardrail, failing sections")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = write_wav16(Path(tmp) / "speech.wav",
+                          speechlike(np.random.RandomState(19), CLI_SPEECH_SECONDS))
+        out, calls, line = cli_path(attn, i8, smi, paths, "CLI transcribe v3, 30 s",
+                                    ["transcribe", str(wav), "--version", "v3",
+                                     "--allow-random-init"])
+        check(all(c == (24, 128) for c in calls) and calls, f"transcribe encoder calls {calls}")
+        manager = AsrManager(AsrModels.load("v3", allow_random_init=True, device=device),
+                             ASRConfig(parallel_chunk_batch=4))
+        direct = manager.transcribe(wav)
+        check(out[0] == f"{wav}: {direct.text}",
+              f"transcribe: CLI {out[0]!r} vs AsrManager {direct.text!r}")
+        lines.append(line)
+        lines.append(time_request(smi, f"v3 AsrManager.transcribe of the same 30 s file "
+                                       f"({len(direct.text.split())} words)",
+                                  lambda: manager.transcribe(wav), CLI_SPEECH_SECONDS, runs=3))
+        del manager
+        torch.cuda.empty_cache()
+        lap("transcribe")
+
+        out, calls, line = cli_path(attn, i8, smi, paths, "CLI benchmark all, batch 128",
+                                    ["benchmark", "--workload", "all", "--batch", "128"])
+        metrics = [json.loads(x) for x in out if x.startswith("{")]
+        check([m["metric"] for m in metrics] == ["asr_batch_rtfx", "vad_rtfx",
+                                                 "eou_streaming_p50_chunk_latency",
+                                                 "sortformer_offline_rtfx"]
+              and all(m["value"] > 0 for m in metrics), f"benchmark lines {metrics}")
+        check(set(calls) == {(24, 128), (17, 64)} and calls.count((24, 128)) == 4,
+              f"benchmark encoder calls {calls}")
+        lines.append(line + " | " + " ".join(json.dumps(m) for m in metrics))
+        torch.cuda.empty_cache()
+        lap("benchmark")
+
+        # not profiled: its ~2 x 10^6 launches (the RNN-T loop at its token
+        # cap) take the profiler ~100 s to read; the command times itself
+        out, calls, line = cli_path(attn, i8, smi, paths, "CLI streaming-latency-benchmark, 64",
+                                    ["streaming-latency-benchmark", "--chunks",
+                                     str(CLI_STREAM_CHUNKS), "--iters", "1"], profiled=False)
+        probe = guardrail_json(out)
+        check(probe["backend"] == "cuda" and not calls
+              and all(probe[f"eou_{t}ms"]["device_per_chunk_ms"] > 0 for t in (160, 320, 1280)),
+              f"streaming-latency-benchmark {probe}")
+        lines.append(line + " | " + json.dumps(probe))
+        lap("streaming latency")
+
+        mix, _, _ = tc.diarizer_mixture(np.random.RandomState(19), CLI_DIAR_SECONDS)
+        wav = write_wav16(Path(tmp) / "meeting.wav", mix)
+        out, calls, line = cli_path(attn, i8, smi, paths, "CLI diarize sortformer, 60 s",
+                                    ["diarize", str(wav), "--mode", "sortformer", "--rttm"])
+        check(calls and all(c == (17, 64) for c in calls), f"diarize encoder calls {calls}")
+        lines.append(line)
+        out, _, line = cli_path(attn, i8, smi, paths, "CLI tts-asr-verify trained fixture",
+                                ["tts-asr-verify", "w3 w7 w1", "--trained-fixture"])
+        check(any(x.startswith("wer: ") for x in out), f"tts-asr-verify {out}")
+        lines.append(line)
+        out, _, _ = cli_path(attn, i8, smi, paths, "CLI normalize",
+                             ["normalize", "twenty", "one", "dollars"])
+        check(out == ["$21"], f"normalize {out}")
+        lap("diarize, tts-asr-verify, normalize")
+    print("phase 19 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()), flush=True)
+    return paths, lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU", file=sys.stderr)
@@ -3317,6 +3682,8 @@ def main() -> int:
     elapsed("phase 17")
     paths.update(phase_tts_rest(attn, i8, device, smi)[0])
     elapsed("phase 18")
+    paths.update(phase_cli(attn, i8, device, smi)[0])
+    elapsed("phase 19")
     print(json.dumps({"kernels": [{
         "name": "relpos_attention",
         "route": "cuda",

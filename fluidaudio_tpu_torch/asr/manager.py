@@ -13,7 +13,9 @@ script filtering with the English blocklist (`utils/language.py`): a
 [vocab+1] bool mask of allowed tokens, built once per language.
 
 `warmup()` runs the long-form pipeline once before the first request.
-Not ported yet: mesh-sharded serving (`set_mesh`).
+`set_mesh(None)` keeps single-device serving, as in JAX; a mesh raises
+NotImplementedError until the torch.distributed slice (ROADMAP Queue A
+item 7e).
 """
 
 from __future__ import annotations
@@ -77,6 +79,14 @@ class AsrManager:
         # per-session progress stream for long transcriptions
         self.progress = ProgressEmitter()
         self._language_masks: dict[str, torch.Tensor] = {}
+
+    def set_mesh(self, mesh) -> None:
+        """`None` (no mesh) is single-device serving, as in JAX.
+        Sharding the long-form window batches over devices waits for the
+        torch.distributed slice (ROADMAP Queue A item 7e)."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh-sharded ASR serving is not ported yet (ROADMAP Queue A item 7e)")
 
     # ------------------------------------------------------------- pipeline
 

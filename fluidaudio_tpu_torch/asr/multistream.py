@@ -14,8 +14,9 @@ batch axis on the device, and one serving tick runs one batched chunk step
   stays per stream and reuses the single-stream bookkeeping
   (`_host_advance`) unchanged.
 
-Multi-GPU serving (`set_mesh`) is not ported: it waits for the
-torch.distributed slice.
+`set_mesh(None)` keeps single-device serving, as in JAX; a mesh raises
+NotImplementedError until the torch.distributed slice (ROADMAP Queue A
+item 7e).
 """
 
 from __future__ import annotations
@@ -130,11 +131,14 @@ class MultiStreamMixin:
         return self.chunk_samples + LOOKAHEAD_SAMPLES
 
     def set_mesh(self, mesh) -> None:
-        """Mesh-sharded multi-stream serving is not ported yet: multi-GPU
-        serving over torch.distributed is the port's last slice."""
-        raise NotImplementedError(
-            "set_mesh: multi-GPU serving over torch.distributed is not ported yet; "
-            "serve the streams on one device")
+        """`None` (no mesh) serves the streams on one device, as in JAX
+        (whose reset of its jitted chunk program has no counterpart here:
+        the chunk step is eager). Mesh-sharded multi-stream serving waits
+        for the torch.distributed slice (ROADMAP Queue A item 7e)."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "set_mesh: multi-GPU serving over torch.distributed is not ported yet "
+                "(ROADMAP Queue A item 7e); serve the streams on one device")
 
     # ------------------------------------------------------------ session
 

@@ -206,14 +206,23 @@ class _StreamingManagerBase(_StreamingModels):
             eou_detected=False,
         )
 
+    def _chunk_step(self, window: torch.Tensor, last: torch.Tensor, caches, dec_state):
+        """mel -> encoder step -> RNN-T decode of one chunk on the device:
+        (window [1, need], last sample [1], caches, decoder state) ->
+        (chunk result, the next chunk's last sample, caches, decoder state),
+        everything left on the device."""
+        mel_chunk = self._mel_chunk(window, last)
+        enc, caches = self._apply_encoder(mel_chunk, caches, self._prompt_ids(window.device))
+        result, dec_state = self._decode_chunk(enc, dec_state)
+        return result, window[:, self.chunk_samples - 1], caches, dec_state
+
     def _process_one(self, state: _StreamState) -> EouPartialResult:
-        """mel -> encoder step -> RNN-T decode of one chunk on the device."""
+        """One chunk step on the device, then the host's bookkeeping."""
         dev = self.device
-        mel_chunk = self._mel_chunk(
+        result, _, state.caches, state.dec_state = self._chunk_step(
             torch.from_numpy(state.pending[: self._need])[None].to(dev),
-            torch.tensor([state.last_sample], dtype=torch.float32, device=dev))
-        enc, state.caches = self._apply_encoder(mel_chunk, state.caches, self._prompt_ids(dev))
-        result, state.dec_state = self._decode_chunk(enc, state.dec_state)
+            torch.tensor([state.last_sample], dtype=torch.float32, device=dev),
+            state.caches, state.dec_state)
         # one device->host copy for every host-consumed output
         tokens_h, times_h, counts_h, eou_h = chunk_outputs_to_host(
             result.tokens, result.token_times, result.counts, result.eou_detected)

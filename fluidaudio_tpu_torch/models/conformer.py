@@ -50,8 +50,19 @@ class ConformerConfig:
     n_heads: int = 8
     ffn_expansion: int = 4
     conv_kernel: int = 9
+    subsampling_factor: int = 8  # the three stride-2 convolutions (as in JAX, not read)
     subsampling_channels: int = 256
+    dropout: float = 0.0  # inference default (as in JAX, not read)
+    # limited attention context in frames, -1 = full; the offline encoder
+    # takes full context only (`ConformerEncoder` refuses a limit); the
+    # cache-aware streaming encoder is models/conformer_streaming.py
+    att_context_left: int = -1
+    att_context_right: int = -1
     dtype: str = "bfloat16"  # compute dtype
+    # JAX's choice of attention path; the port takes "auto" only (the
+    # rel-pos attention kernel where it takes the head width), and
+    # `ConformerEncoder` refuses any other value
+    attention_backend: str = "auto"
     # "none" | "int8": dynamic w8a8 on the large matmuls through
     # ops/quant.Int8Linear (weights quantised once, at load)
     quantization: str = "none"
@@ -73,6 +84,15 @@ class ConformerConfig:
         for _ in range(3):
             t = (t + 2 - 3) // 2 + 1
         return t
+
+
+# Presets (sizes from SURVEY.md §2.4 / NeMo checkpoints), JAX's values
+PARAKEET_V3 = ConformerConfig()  # 0.6B: 24 x 1024, 8 heads
+PARAKEET_V2 = ConformerConfig()
+PARAKEET_110M = ConformerConfig(d_model=512, n_layers=17)
+EOU_120M = ConformerConfig(
+    d_model=512, n_layers=17, att_context_left=70, att_context_right=0
+)
 
 
 def _layer_norm(d: int, device) -> nn.LayerNorm:
@@ -234,6 +254,14 @@ class ConformerEncoder(nn.Module):
 
     def __init__(self, cfg: ConformerConfig, device=None):
         super().__init__()
+        if cfg.att_context_left >= 0 or cfg.att_context_right >= 0:
+            raise NotImplementedError(
+                "limited attention context in the offline encoder is not ported; the "
+                "streaming encoder is models/conformer_streaming.StreamingConformerEncoder")
+        if cfg.attention_backend != "auto":
+            raise NotImplementedError(
+                f"attention_backend={cfg.attention_backend!r} is not ported; the encoder "
+                "takes \"auto\" (the rel-pos attention kernel where it takes the head width)")
         self.cfg = cfg
         self.subsampling = DwStridingSubsampling(cfg, device)
         for i in range(cfg.n_layers):

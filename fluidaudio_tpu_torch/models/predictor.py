@@ -38,6 +38,11 @@ class PredictorConfig:
         return getattr(torch, self.dtype)
 
 
+PARAKEET_V3_PRED = PredictorConfig(vocab_size=8192, n_layers=1)
+PARAKEET_V2_PRED = PredictorConfig(vocab_size=1024, n_layers=2)
+EOU_PRED = PredictorConfig(vocab_size=1024, n_layers=1, enc_hidden=512, n_durations=0)
+
+
 class LstmCell(nn.Module):
     """One LSTM step with gate order i, f, g, o and two biased projections."""
 

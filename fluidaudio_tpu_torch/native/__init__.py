@@ -1,1 +1,1 @@
-"""Host-side native code of the port, built with the host C++ compiler at first use."""
+"""Host-side native code of the port, built with the host C/C++ compiler at first use."""

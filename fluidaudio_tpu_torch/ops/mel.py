@@ -127,6 +127,11 @@ class MelConfig:
         return max(0, 1 + (num_samples - self.win_length) // self.hop_length)
 
 
+# NeMo-parity presets for the model families (SURVEY.md §2.4: three mel recipes)
+NEMO_PARAKEET = MelConfig(normalize="per_feature")
+NEMO_EOU = MelConfig(normalize=None)  # parakeet_realtime_eou_120m: normalize "NA"
+
+
 # ---------------------------------------------------------------------------
 # NumPy golden reference (direct per-frame FFT) — used by tests
 # ---------------------------------------------------------------------------

@@ -1,15 +1,18 @@
-"""Trained fixture evaluations on the port: CTC, SenseVoice, Paraformer,
-Cohere, VAD, the diarizers, LS-EEND and the TTS backends (Kokoro,
-PocketTTS, StyleTTS2).
+"""Trained fixture evaluations on the port: Parakeet TDT, streaming EOU,
+Nemotron, CTC, SenseVoice, Paraformer, Cohere, VAD, the diarizers, LS-EEND
+and the TTS backends (Kokoro, PocketTTS, StyleTTS2).
 
-Copies of those parts of `fluidaudio_tpu/train/fixtures.py` (that module
-imports JAX): the same seeds, corpora and gates, run through the port's
+Copies of `fluidaudio_tpu/train/fixtures.py` (that module imports JAX): the
+same seeds, corpora and gates, run through the port's `AsrManager`,
+`StreamingEouAsrManager`, `StreamingNemotronAsrManager`,
 `CtcKeywordSpotter`, `ctc_greedy_decode`, `ctc_beam_search`,
 `ctc_token_rescore`, `SenseVoiceManager`, `ParaformerManager`,
 `CoherePipeline`, `VadManager`, `OfflineDiarizerManager`, `DiarizerManager`,
 `SortformerDiarizer`, `LSEENDDiarizer`, `KokoroManager`, `PocketTtsManager` and
 `StyleTTS2Manager` on `device`
-(None: the GPU; pass "cpu" to run on the CPU). The fixtures themselves are
+(None: the GPU; pass "cpu" to run on the CPU). The held-out draws of the
+ASR, EOU and Nemotron evaluations are their own functions
+(`*_fixture_utterances`), which the tests share. The fixtures themselves are
 the JAX package's committed npz (`fluidaudio_tpu/assets/trained_tiny/`),
 read as files.
 """
@@ -26,8 +29,9 @@ from fluidaudio_tpu_torch.train import tiny_corpus as tc
 #: the fixture's vocabulary: 16 tone words at 0..15, blank LAST (id 16 — the
 #: parakeet-ctc head layout `KeywordSpotterConfig.blank_id`)
 CTC_BLANK_ID = tc.N_WORDS
-#: quality gates the fixture clears (as in the JAX package)
+#: quality gates the fixtures clear (as in the JAX package)
 ASR_WER_GATE = 0.02
+VAD_F1_GATE = 0.90
 KWS_RECALL_GATE = 0.99
 KWS_PRECISION_GATE = 0.99
 DIAR_DER_GATE = 0.05
@@ -51,6 +55,207 @@ LSEEND_DER_GATE = 0.10
 def trained_assets_dir() -> Path:
     """The committed trained fixtures (they live beside the JAX package)."""
     return Path(__file__).resolve().parents[2] / "fluidaudio_tpu" / "assets" / "trained_tiny"
+
+
+_CORE_FAMILIES = ("asr", "vad", "sortformer")
+
+_FIXTURE_FILES = {
+    "asr": ("asr/encoder.npz", "asr/predictor.npz", "asr/joint.npz",
+            "asr/vocab.json"),
+    "vad": ("vad/silero_vad.npz",),
+    "sortformer": ("sortformer/encoder.npz",),
+    "sensevoice": ("sensevoice/encoder.npz", "sensevoice/vocab.json"),
+    "paraformer": ("paraformer/model.npz", "paraformer/vocab.json"),
+    "cohere": ("cohere/encoder.npz", "cohere/decoder.npz", "cohere/vocab.json"),
+    "eou": ("eou/encoder.npz", "eou/predictor.npz", "eou/joint.npz",
+            "eou/vocab.json"),
+    "lseend": ("lseend/model.npz",),
+    "offline": ("offline/segmentation.npz", "offline/embedding.npz",
+                "offline/plda_rho.npz"),
+    "nemotron": ("nemotron/encoder.npz", "nemotron/predictor.npz",
+                 "nemotron/joint.npz", "nemotron/vocab.json",
+                 "nemotron/metadata.json"),
+    "ctc": ("ctc/encoder.npz", "ctc/ctc_head.npz", "ctc/vocab.json"),
+    "tts": ("tts/text.npz", "tts/audio.npz", "tts/voices.npz"),
+    "pocket": ("pocket/flowlm.npz", "pocket/flow.npz", "pocket/mimi.npz",
+               "pocket/mimi_enc.npz", "pocket/voices.npz"),
+    "styletts2": ("styletts2/text.npz", "styletts2/style.npz",
+                  "styletts2/predict.npz", "styletts2/acoustic.npz"),
+}
+
+
+def fixtures_available(*families: str) -> bool:
+    """No args = the three core families (ASR/VAD/sortformer)."""
+    base = trained_assets_dir()
+    for fam in families or _CORE_FAMILIES:
+        if not all((base / f).exists() for f in _FIXTURE_FILES[fam]):
+            return False
+    return True
+
+
+# ------------------------------------------------------------------------
+# Tiny per-family fixture conventions (one source of truth for token-id
+# maps and configs, as in the JAX package)
+# ------------------------------------------------------------------------
+
+#: SenseVoice: CTC blank is id 0 (FunASR convention), words at 1..16
+SENSEVOICE_WORD_OFFSET = 1
+#: Paraformer: id 0 reserved as pad, words at 1..16
+PARAFORMER_WORD_OFFSET = 1
+#: Cohere: ids 0-4 are special (pad 2, eos 3, bos 4), words at 5..20
+COHERE_WORD_OFFSET = 5
+#: Nemotron multilingual tiny: language A (pure tones, "w*") at 0..15,
+#: language B (harmonic, "v*") at 16..31, lang tags <aa-AA>/<bb-BB> at 32/33,
+#: blank 34; prompt ids {auto: 0, aa-AA: 1, bb-BB: 2}
+NEMOTRON_B_OFFSET = 16
+NEMOTRON_TAG_A = 32
+NEMOTRON_TAG_B = 33
+
+
+# ------------------------------------------------- Parakeet TDT (batch)
+
+
+def asr_fixture_utterances(n_words: tuple[int, ...] = (5, 40), seed: int = 12345
+                           ) -> list[tuple[np.ndarray, np.ndarray]]:
+    """The held-out draws of `eval_asr_fixture`: (word ids, audio) per length."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for n in n_words:
+        ids = rs.randint(0, tc.N_WORDS, size=n)
+        out.append((ids, tc.make_utterance(ids, rs)))
+    return out
+
+
+def eval_asr_fixture(n_words: tuple[int, ...] = (5, 40), seed: int = 12345, batch: int = 2,
+                     *, device=None) -> dict[str, float]:
+    """WER through the FULL AsrManager.transcribe path (chunked long-form,
+    silence-aligned starts, seam merge) on held-out utterances of the
+    trained 16-tone-word language. Returns per-length + average WER."""
+    from fluidaudio_tpu_torch.asr.config import ASRConfig
+    from fluidaudio_tpu_torch.asr.manager import AsrManager
+    from fluidaudio_tpu_torch.metrics.wer import wer
+    from fluidaudio_tpu_torch.models.zoo import AsrModels
+
+    models = AsrModels.load(
+        "test-tiny", checkpoint_dir=trained_assets_dir() / "asr",
+        allow_random_init=False, device=device,
+    )
+    mgr = AsrManager(models, ASRConfig(parallel_chunk_batch=batch))
+    out: dict[str, float] = {}
+    rates = []
+    for n, (ids, audio) in zip(n_words, asr_fixture_utterances(n_words, seed)):
+        r = wer(tc.transcript_text(ids), mgr.transcribe(audio).text).rate
+        out[f"wer_{n}w"] = r
+        rates.append(r)
+    out["wer_avg"] = float(np.mean(rates))
+    return out
+
+
+# ---------------------------------------------------- streaming EOU, Nemotron
+#: the open-mic silence after each utterance of the EOU evaluation: EOU is
+#: silence-driven (reference ParakeetEouCommand.swift:22), and the trained
+#: detection deadline is ~1 s after the utterance ends
+EOU_TAIL_SECONDS = 1.28
+
+
+def eou_fixture_utterances(seed: int = 2468, n_utts: int = 6
+                           ) -> list[tuple[np.ndarray, np.ndarray]]:
+    """The held-out draws of `eval_eou_fixture`: (word ids, audio followed by
+    `EOU_TAIL_SECONDS` of silence)."""
+    rs = np.random.RandomState(seed)
+    tail = np.zeros(int(EOU_TAIL_SECONDS * 16_000), np.float32)
+    out = []
+    for _ in range(n_utts):
+        ids = rs.randint(0, tc.N_WORDS, size=int(rs.randint(2, 8)))
+        out.append((ids, np.concatenate([tc.make_utterance(ids, rs), tail])))
+    return out
+
+
+def eval_eou_fixture(seed: int = 2468, n_utts: int = 6, *, device=None) -> dict[str, float]:
+    """WER + EOU-detection rate through the FULL StreamingEouAsrManager path
+    (chunked feed, mel pre-cache, conformer channel/time caches, incremental
+    RNN-T decode, finish() flush) on held-out utterances at the trained
+    320 ms tier. The EOU token must fire (debounced flag) for each utterance
+    and must NOT leak into the transcript text."""
+    from fluidaudio_tpu_torch.asr.streaming_eou import EOU_TEST, StreamingEouAsrManager
+    from fluidaudio_tpu_torch.metrics.wer import wer
+
+    eou_events: list = []
+    mgr = StreamingEouAsrManager(
+        chunk_ms=320, spec=EOU_TEST,
+        checkpoint_dir=trained_assets_dir() / "eou",
+        on_eou=lambda p: eou_events.append(p), device=device,
+    )
+    rates, detected = [], 0
+    for ids, audio in eou_fixture_utterances(seed, n_utts):
+        state = mgr.make_state()
+        eou_events.clear()
+        mgr.process(audio, state)
+        final = mgr.finish(state)
+        rates.append(wer(tc.transcript_text(ids), final.text).rate)
+        detected += bool(eou_events)
+    return {"wer_avg": float(np.mean(rates)),
+            "eou_detect_rate": detected / n_utts}
+
+
+def nemotron_tiny_enc_cfg():
+    """Streaming-conformer size for the NEMOTRON_TEST fixture (matches the
+    EOU_TEST encoder so both streaming families share convention coverage)."""
+    from fluidaudio_tpu_torch.models.conformer_streaming import StreamingConformerConfig
+
+    return StreamingConformerConfig(
+        d_model=64, n_layers=2, n_heads=4, subsampling_channels=32,
+        att_context_left=16,
+    )
+
+
+def nemotron_fixture_utterances(seed: int = 9753, n_utts: int = 6
+                                ) -> list[tuple[str, str, np.ndarray]]:
+    """The held-out draws of `eval_nemotron_fixture`: (prompt language
+    "aa-AA"/"bb-BB", reference text, audio); the languages alternate."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for u in range(n_utts):
+        lang = "a" if u % 2 == 0 else "b"
+        ids = rs.randint(0, tc.N_WORDS, size=int(rs.randint(2, 8)))
+        audio = tc.make_utterance(ids, rs, lang=lang)
+        words = (tc.word_text(i) if lang == "a" else tc.word_text_b(i) for i in ids)
+        out.append(("aa-AA" if lang == "a" else "bb-BB", " ".join(words), audio))
+    return out
+
+
+def eval_nemotron_fixture(seed: int = 9753, n_utts: int = 6, *, device=None
+                          ) -> dict[str, float]:
+    """The multilingual streaming contract through the FULL manager:
+    per-language WER with explicit prompts, and auto-mode language detection
+    (leading <xx-XX> tag parsed + filtered from text) on the same audio.
+    Reference: StreamingNemotronMultilingualAsrManager + FLEURS benchmark
+    semantics."""
+    from fluidaudio_tpu_torch.asr.streaming_nemotron import (
+        NEMOTRON_TEST, StreamingNemotronAsrManager,
+    )
+    from fluidaudio_tpu_torch.metrics.wer import wer
+
+    mgr = StreamingNemotronAsrManager(
+        NEMOTRON_TEST, 560, language="auto", enc_cfg=nemotron_tiny_enc_cfg(),
+        checkpoint_dir=trained_assets_dir() / "nemotron", device=device,
+    )
+    rates, detected = [], 0
+    for lang, ref, audio in nemotron_fixture_utterances(seed, n_utts):
+        # explicit prompt for this language
+        mgr.set_language(lang)
+        state = mgr.make_state()
+        mgr.process(audio, state)
+        rates.append(wer(ref, mgr.finish(state).text).rate)
+
+        # auto-detect mode on the same audio
+        mgr.set_language("auto")
+        state = mgr.make_state()
+        mgr.process(audio, state)
+        mgr.finish(state)
+        detected += state.detected_language == lang
+    return {"wer_avg": float(np.mean(rates)),
+            "lang_detect_rate": detected / n_utts}
 
 
 def ctc_tiny_enc_cfg():
@@ -586,6 +791,72 @@ def tts_target_audio(word_ids: np.ndarray, total_frames: int) -> np.ndarray:
     out = np.zeros(total_frames * HOP, np.float32)
     out[: min(audio.size, out.size)] = audio[: out.size]
     return out
+
+
+def _linear_resize_np(x: np.ndarray, out_len: int) -> np.ndarray:
+    """numpy mirror of models.kokoro.linear_resize (align_corners=False)."""
+    in_len = x.shape[0]
+    scale = in_len / out_len
+    pos = (np.arange(out_len) + 0.5) * scale - 0.5
+    lo = np.clip(np.floor(pos).astype(np.int64), 0, in_len - 1)
+    hi = np.clip(lo + 1, 0, in_len - 1)
+    frac = np.clip(pos - lo, 0.0, 1.0).astype(np.float32)
+    return x[lo] + (x[hi] - x[lo]) * frac
+
+
+def tts_source_phase(f0_2f: np.ndarray, variant: str = "kokoro") -> np.ndarray:
+    """Fundamental phase track EXACTLY as the harmonic source accumulates it:
+    a cumsum over the F0 track that never resets (each word inherits the
+    accumulated phase of every word before it) and freezes through silence
+    (f0=0 adds nothing).
+
+    variant="kokoro": models.kokoro.SourceModule — instantaneous frequency
+    downsampled to the 2F frame rate (linear_resize), cumsum at frame rate,
+    re-upsampled linearly (x300).
+    variant="styletts2": models.styletts2.HifiSourceModule — plain
+    per-sample cumsum with the %1 cycle bound.
+
+    f0_2f: [2F] Hz track at the prosody head's 2x frame rate (300-sample
+    steps at 24 kHz). Returns phase [2F*300] in radians (float32, matching
+    the on-device accumulation).
+    """
+    f0_up = np.repeat(f0_2f.astype(np.float32), 300)
+    rad = (f0_up / 24_000.0) % 1.0
+    if variant == "styletts2":
+        ph = np.cumsum(rad.astype(np.float32), dtype=np.float32) % 1.0
+        return ph * np.float32(2.0 * np.pi)
+    L = f0_up.size
+    rad_f = _linear_resize_np(rad, L // 300)
+    ph = np.cumsum(rad_f, dtype=np.float32) * np.float32(2.0 * np.pi)
+    return _linear_resize_np(ph * np.float32(300.0), L)
+
+
+def tts_target_audio_aligned(
+    word_ids: np.ndarray, total_frames: int, variant: str = "kokoro",
+) -> tuple[np.ndarray, np.ndarray]:
+    """Training-only construction target with SOURCE-aligned phase: the word
+    and gap frame layout and 10 ms amplitude ramps of `tts_target_audio`,
+    with the tone phase `tts_source_phase` of the ground-truth F0 track (so
+    with teacher-forced F0 the ideal vocoder output IS this waveform).
+    Returns (audio [total_frames*600], f0_2f [2*total_frames])."""
+    from fluidaudio_tpu_torch.models.kokoro import HOP, SAMPLE_RATE
+
+    f0_2f = np.zeros(2 * total_frames, np.float32)
+    env = np.zeros(total_frames * HOP, np.float32)
+    ramp = int(0.010 * SAMPLE_RATE)
+    edge = 0.5 - 0.5 * np.cos(np.pi * np.arange(ramp) / ramp)
+    for k, w in enumerate(word_ids):
+        start_f = TTS_PAD_FRAMES + k * (TTS_WORD_FRAMES + TTS_GAP_FRAMES)
+        end_f = start_f + TTS_WORD_FRAMES
+        if end_f > total_frames:
+            break
+        f0_2f[2 * start_f : 2 * end_f] = tc.word_freq(int(w))
+        s, e = start_f * HOP, end_f * HOP
+        env[s:e] = 0.35
+        env[s : s + ramp] = 0.35 * edge
+        env[e - ramp : e] = 0.35 * edge[::-1]
+    phase = tts_source_phase(f0_2f, variant)[: env.size]
+    return (env * np.sin(phase)).astype(np.float32), f0_2f
 
 
 def _tiny_asr(device):

@@ -22,6 +22,7 @@ from fluidaudio_tpu.train.fixtures import ASR_WER_GATE, trained_assets_dir
 from fluidaudio_tpu_torch.asr.config import ASRConfig
 from fluidaudio_tpu_torch.asr.manager import AsrManager
 from fluidaudio_tpu_torch.models.zoo import AsrModels
+from fluidaudio_tpu_torch.train import fixtures as port_fx
 from fluidaudio_tpu_torch.train import tiny_corpus as port_tc
 from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
 
@@ -30,12 +31,7 @@ CKPT = trained_assets_dir() / "asr"
 
 def _utterances():
     """The exact draws of `eval_asr_fixture`: (word ids, audio) for 5 and 40."""
-    rs = np.random.RandomState(12345)
-    out = {}
-    for n in (5, 40):
-        ids = rs.randint(0, port_tc.N_WORDS, size=n)
-        out[n] = (ids, port_tc.make_utterance(ids, rs))
-    return out
+    return {len(ids): (ids, audio) for ids, audio in port_fx.asr_fixture_utterances((5, 40))}
 
 
 @pytest.fixture(scope="module")
@@ -178,3 +174,20 @@ def test_warmup_runs_the_long_form_pipeline_once(managers, monkeypatch):
         jax_mgr.config.mel_chunk_context).window_samples
     assert calls == [(b, (b, w), False, [w] * b, [False] * b),
                      (3, (3, 16_000), False, [16_000] * 3, [False] * 3)]
+
+
+def test_set_mesh_none_keeps_single_device_serving(managers, utterances):
+    """JAX's contract: `set_mesh(None)` clears any mesh and serving stays on
+    one device with the same transcripts; a mesh raises until the port has
+    torch.distributed serving (ROADMAP item 7e)."""
+    jax_mgr, port_mgr = managers
+    audio = utterances[40][1]
+    before = port_mgr.transcribe(audio)
+    jax_mgr.set_mesh(None)
+    port_mgr.set_mesh(None)
+    after = port_mgr.transcribe(audio)
+    assert after.text == before.text == jax_mgr.transcribe(audio).text
+    assert [t.token_id for t in after.token_timings] == [t.token_id for t in before.token_timings]
+    with pytest.raises(NotImplementedError, match="item 7e"):
+        port_mgr.set_mesh(object())
+    assert port_mgr.transcribe(utterances[5][1]).text == port_tc.transcript_text(utterances[5][0])

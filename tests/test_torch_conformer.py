@@ -170,3 +170,35 @@ def test_mhsa_dispatches_by_head_width_and_matches_jax(width, monkeypatch):
                                             (160, False)])
 def test_kernel_head_width_predicate(head_dim, takes):
     assert port.kernel_takes_head_dim(head_dim) is takes
+
+
+PRESETS = [("models.conformer", n) for n in ("PARAKEET_V3", "PARAKEET_V2", "PARAKEET_110M",
+                                              "EOU_120M")]
+PRESETS += [("models.predictor", n) for n in ("PARAKEET_V3_PRED", "PARAKEET_V2_PRED",
+                                               "EOU_PRED")]
+PRESETS += [("ops.mel", n) for n in ("NEMO_PARAKEET", "NEMO_EOU")]
+
+
+@pytest.mark.parametrize("module,name", PRESETS, ids=[n for _, n in PRESETS])
+def test_preset_equals_jax(module, name):
+    """Each of JAX's nine preset constants exists in the same port module,
+    every field equal (`dataclasses.asdict`)."""
+    import dataclasses
+    import importlib
+
+    want = getattr(importlib.import_module(f"fluidaudio_tpu.{module}"), name)
+    got = getattr(importlib.import_module(f"fluidaudio_tpu_torch.{module}"), name)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert type(got).__name__ == type(want).__name__
+
+
+def test_attention_backend_other_than_auto_is_refused():
+    """JAX's `attention_backend="xla"` (its einsum path) has no counterpart:
+    the port's encoder refuses it rather than leave the kernel off the card."""
+    with pytest.raises(NotImplementedError, match="attention_backend='xla'"):
+        port.ConformerEncoder(port.ConformerConfig(**DH128, attention_backend="xla"))
+
+
+def test_limited_context_is_refused_by_the_offline_encoder():
+    with pytest.raises(NotImplementedError, match="conformer_streaming"):
+        port.ConformerEncoder(port.EOU_120M)

@@ -6,8 +6,9 @@ exactly what the single-stream path gives (tokens, timestamps, EOU flags,
 detected language), whether the streams are fed in lockstep or at
 different rates, for the trained `eou` and `nemotron` fixtures, with
 per-stream language prompts and forced prefixes; and the JAX package's
-multi-stream session must agree with the port's. Mesh-sharded serving
-(`set_mesh`) is not ported and raises.
+multi-stream session must agree with the port's. `set_mesh(None)` keeps
+single-device serving with the same transcripts; a mesh raises until the
+torch.distributed slice.
 """
 
 import numpy as np
@@ -179,3 +180,20 @@ def test_flush_subset_and_bad_feed():
 def test_set_mesh_is_not_ported(make):
     with pytest.raises(NotImplementedError, match="torch.distributed is not ported yet"):
         make().set_mesh(object())
+
+
+@pytest.mark.parametrize("make", [_eou_manager, _nemotron_manager], ids=["eou", "nemotron"])
+def test_set_mesh_none_keeps_single_device_serving(make):
+    """JAX's contract: None clears any mesh; the multi-stream session then
+    gives what it gave before, and the single-stream path is unchanged."""
+    mgr = make()
+    utts, _ = _eou_utterances(2, seed=31)
+    session = mgr.make_multi_state(2)
+    mgr.process_multi(session, utts)
+    before = mgr.flush_multi(session)
+    single, _, _ = _single(mgr, utts)
+    mgr.set_mesh(None)
+    session = mgr.make_multi_state(2)
+    mgr.process_multi(session, utts)
+    _same(mgr.flush_multi(session), before)
+    _same(_single(mgr, utts)[0], single)

@@ -22,33 +22,18 @@ import torch
 from fluidaudio_tpu.asr import streaming_nemotron as jax_nem
 from fluidaudio_tpu.train import fixtures as fx
 from fluidaudio_tpu_torch.asr import streaming_nemotron as port_nem
-from fluidaudio_tpu_torch.metrics.wer import wer
 from fluidaudio_tpu_torch.models.conformer_streaming import StreamingConformerConfig
 from fluidaudio_tpu_torch.registry import Repo
+from fluidaudio_tpu_torch.train import fixtures as port_fx
 from fluidaudio_tpu_torch.train import tiny_corpus as tc
 from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
 
 CKPT = fx.trained_assets_dir() / "nemotron"
-# the fixture's encoder size (fixtures.nemotron_tiny_enc_cfg)
-TINY_ENC = StreamingConformerConfig(d_model=64, n_layers=2, n_heads=4, subsampling_channels=32,
-                                    att_context_left=16)
+TINY_ENC = port_fx.nemotron_tiny_enc_cfg()  # the fixture's encoder size
 WER_GATE = 0.02
 
 
-def _utterances(seed=9753, n=6):
-    """The draws of `eval_nemotron_fixture`: (language, reference, audio)."""
-    rs = np.random.RandomState(seed)
-    out = []
-    for u in range(n):
-        lang = "a" if u % 2 == 0 else "b"
-        ids = rs.randint(0, tc.N_WORDS, size=int(rs.randint(2, 8)))
-        audio = tc.make_utterance(ids, rs, lang=lang)
-        words = (tc.word_text(i) if lang == "a" else tc.word_text_b(i) for i in ids)
-        out.append(("aa-AA" if lang == "a" else "bb-BB", " ".join(words), audio))
-    return out
-
-
-UTTS = _utterances()
+UTTS = port_fx.nemotron_fixture_utterances()  # the draws of eval_nemotron_fixture
 
 
 def port_manager(language="auto", **kw):
@@ -93,15 +78,9 @@ def test_trained_fixture_matches_jax(managers, u, mode):
 def test_trained_fixture_gates():
     """`eval_nemotron_fixture` through the port: WER <= 0.02 with the
     language's prompt, and the auto mode detects each language."""
-    mgr = port_manager()
-    rates, detected = [], 0
-    for lang, ref, audio in UTTS:
-        _, final = _run(mgr, audio, lang)
-        rates.append(wer(ref, final.text).rate)
-        state, _ = _run(mgr, audio, "auto")
-        detected += state.detected_language == lang
-    assert np.mean(rates) <= WER_GATE
-    assert detected / len(UTTS) >= 0.99
+    scores = port_fx.eval_nemotron_fixture(device="cpu")
+    assert scores["wer_avg"] <= WER_GATE
+    assert scores["lang_detect_rate"] >= 0.99
 
 
 def test_forced_prefix_gives_the_bb_text(managers):

@@ -85,9 +85,7 @@ NOT_PORTED = {
     "ops": set(),
     "models": set(),
     "utils": set(),
-    "metrics": {"parse_rttm", "write_rttm", "build_kaldi_split",
-                "load_ami_ground_truth", "load_frame_aligned_der_reference",
-                "load_kaldi_der_reference", "load_word_aligned_ground_truth"},
+    "metrics": set(),
     "registry": set(),
     "vad": set(),
     "asr.custom_vocab": set(),

@@ -31,30 +31,20 @@ from fluidaudio_tpu.ops.mel import MelConfig as JaxMelConfig, MelFrontend as Jax
 from fluidaudio_tpu.train import fixtures as fx
 from fluidaudio_tpu.train import tiny_corpus as jax_tc
 from fluidaudio_tpu_torch.asr import streaming_eou as port_eou
-from fluidaudio_tpu_torch.metrics.wer import wer
 from fluidaudio_tpu_torch.models.predictor import PredictorConfig, RnntJoint, RnntPredictor
 from fluidaudio_tpu_torch.ops import tdt_decode as port_tdt
 from fluidaudio_tpu_torch.ops.mel import MelConfig, MelFrontend
+from fluidaudio_tpu_torch.train import fixtures as port_fx
 from fluidaudio_tpu_torch.train import tiny_corpus as tc
 from fluidaudio_tpu_torch.utils.weights import from_jax_params, load_state
 from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
 
 CKPT = fx.trained_assets_dir() / "eou"
 WER_GATE = 0.02
-TAIL = np.zeros(int(1.28 * 16_000), np.float32)  # the open-mic silence of the eval
+TAIL = np.zeros(int(port_fx.EOU_TAIL_SECONDS * 16_000), np.float32)  # open-mic silence
 
 
-def _utterances(seed=2468, n=6):
-    """The draws of `eval_eou_fixture`: (word ids, audio with 1.28 s tail)."""
-    rs = np.random.RandomState(seed)
-    out = []
-    for _ in range(n):
-        ids = rs.randint(0, tc.N_WORDS, size=int(rs.randint(2, 8)))
-        out.append((ids, np.concatenate([tc.make_utterance(ids, rs), TAIL])))
-    return out
-
-
-UTTS = _utterances()
+UTTS = port_fx.eou_fixture_utterances()  # the draws of eval_eou_fixture
 
 
 def _port_manager(**kw):
@@ -92,16 +82,9 @@ def test_trained_fixture_matches_jax(managers, u):
 def test_trained_fixture_gates():
     """`eval_eou_fixture` through the port: WER <= 0.02 and the debounced
     EOU fires for every utterance."""
-    events = []
-    mgr = _port_manager(on_eou=events.append)
-    rates, detected = [], 0
-    for ids, audio in UTTS:
-        events.clear()
-        _, final = _run(mgr, audio)
-        rates.append(wer(tc.transcript_text(ids), final.text).rate)
-        detected += bool(events)
-    assert np.mean(rates) <= WER_GATE
-    assert detected / len(UTTS) >= 0.99
+    scores = port_fx.eval_eou_fixture(device="cpu")
+    assert scores["wer_avg"] <= WER_GATE
+    assert scores["eou_detect_rate"] >= 0.99
 
 
 def test_incremental_feed_matches_one_shot():
