@@ -192,10 +192,30 @@ line is not printed:
      it takes: 24 per v3 call, 17 per Sortformer v2 call; the plain version
      only at the widths it does not take; no int8 launch), profiled (all
      but the streaming probe, whose ~2 x 10^6 launches the profiler takes
-     minutes to read) and timed (card name and power limit on every line).
+     minutes to read) and timed (card name and power limit on every line);
+ 20. the checkpoint converters (`fluidaudio_tpu_torch/convert/`): a seeded
+     full-width Parakeet v3 checkpoint in NeMo's key names (the NeMo oracle
+     encoder's torch init on the card, the TDT prediction net and joint
+     drawn beside it; ~0.62 B params), written with `torch.save` as a raw
+     ckpt and converted by `convert_nemo_file` (seconds and GB/s printed);
+     a test-tiny `.nemo` tar whose `model_config.yaml` adds a layer (applied
+     where PyYAML is installed, the preset kept where it is not, as in JAX;
+     the line says which), loaded on the card with every key consumed and
+     held against the oracle on the CPU; the converted v3 through
+     `AsrModels.load(checkpoint_dir=..., allow_random_init=False)` in bf16
+     and int8 with every key consumed, three 15 s requests each through
+     `AsrManager` (24 attention launches per encoder call, 265 int8
+     launches per int8 call), one bf16 request profiled (launches, busy,
+     idle share); the converted f32 encoder (the f32 attention kernel at Dh
+     128, TF32 off) against the NeMo oracle (a copy of
+     tests/test_conformer_nemo_parity.py's) on the raw weights on the card,
+     15 s x 2 ragged, relative L2 <= 1e-4 over valid frames; a test-width
+     Supertonic-3 ONNX release with no npz converted in place by
+     `Supertonic3Manager`, which must hold the release's weights, and
+     synthesized once.
 
 The line before the last is the kernel record (JSON, with each kernel's
-launches on its main path and on each path of phases 11-19, the plain
+launches on its main path and on each path of phases 11-20, the plain
 attention's calls on the paths that take it, bound and times); the last
 line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -558,17 +578,22 @@ def calibrate_blank_bias(pipeline, models, audio, lengths, seconds: float) -> fl
     return tps
 
 
-def v3_requests(attn, i8, device, quantization: str, version: str = "v3"):
-    """AsrModels.load -> AsrManager.transcribe at full width, with every
-    kernel count set to 0 just before the requests and read just after.
+def v3_requests(attn, i8, device, quantization: str, version: str = "v3",
+                checkpoint_dir: Path | None = None, seconds=(5.0, 15.0, 40.0)):
+    """AsrModels.load (seeded random weights, or the npz of `checkpoint_dir`
+    with every key required) -> AsrManager.transcribe at full width on
+    requests of `seconds`, with every kernel count set to 0 just before the
+    requests and read just after.
     -> (models, manager, {kernel: launches}, one line of results)."""
     from fluidaudio_tpu_torch.asr.config import ASRConfig
+    from fluidaudio_tpu_torch.asr.constants import ASRConstants
     from fluidaudio_tpu_torch.asr.manager import AsrManager
     from fluidaudio_tpu_torch.models.zoo import AsrModels
 
     int8 = quantization == "int8"
     t0 = time.perf_counter()
-    models = AsrModels.load(version, device=device, allow_random_init=True, rng_seed=0,
+    models = AsrModels.load(version, checkpoint_dir=checkpoint_dir, device=device,
+                            allow_random_init=checkpoint_dir is None, rng_seed=0,
                             quantization=quantization)
     manager = AsrManager(models, ASRConfig(parallel_chunk_batch=4))
     load_s = time.perf_counter() - t0
@@ -579,13 +604,14 @@ def v3_requests(attn, i8, device, quantization: str, version: str = "v3"):
     cal = np.stack([speechlike(rs, 15.0) for _ in range(16)])
     tps = calibrate_blank_bias(manager.build_pipeline(16), models, torch.from_numpy(cal),
                                torch.full((16,), WINDOW, dtype=torch.int32), 16 * 15.0)
-    requests = [("5s", speechlike(rs, 5.0), None), ("15s", speechlike(rs, 15.0), None),
-                ("40s chunked", speechlike(rs, 40.0), None)]
+    requests = [(f"{s:g}s" + (" chunked" if s * 16_000 > ASRConstants.MAX_MODEL_SAMPLES else ""),
+                 speechlike(rs, s), None) for s in seconds]
     if int8:
-        requests[1] = ("15s en", requests[1][1], "en")
+        requests[1] = (requests[1][0] + " en", requests[1][1], "en")
 
     torch.cuda.synchronize()
     reset_launches(attn.relpos_attention, i8.int8_matmul_fused)
+    attn.relpos_attention_plain.calls = 0
     results = []
     for name, audio, language in requests:
         encoder_calls = encoder_calls_for(manager, audio)
@@ -608,7 +634,8 @@ def v3_requests(attn, i8, device, quantization: str, version: str = "v3"):
                        f"{wall:.3f} s")
     torch.cuda.synchronize()
     launches = {"relpos_attention": attn.relpos_attention.launches,
-                "int8_matmul_fused": i8.int8_matmul_fused.launches}
+                "int8_matmul_fused": i8.int8_matmul_fused.launches,
+                "relpos_attention_plain calls": attn.relpos_attention_plain.calls}
     check(launches["relpos_attention"] > 0, "the path never launched the attention kernel")
     check(launches["int8_matmul_fused"] > 0 or not int8, "the path never launched int8")
     line = (f"{version} {quantization} full width ({n_layers}x{models.spec.conformer.d_model}, "
@@ -3633,6 +3660,401 @@ def phase_cli(attn, i8, device, smi: str) -> tuple[dict, list[str]]:
     return paths, lines
 
 
+# ---------------------------------------------------------------- phase 20
+# the checkpoint converters: a full-width Parakeet v3 in NeMo's key names
+# goes through the port's `convert_nemo_file` and is served from its npz
+
+
+CONVERT_SEED = 20
+CONVERTED_REQUEST_S = (15.0, 15.0, 15.0)
+ORACLE_TOL = 1e-4  # relative L2, f32 with TF32 off on both sides (PERF.md section 2)
+
+
+class OracleSubsampling(torch.nn.Module):
+    """NeMo's dw_striding ConvSubsampling (a copy of the oracle of
+    tests/test_conformer_nemo_parity.py, which this script cannot import)."""
+
+    def __init__(self, n_mels, channels, d_model):
+        super().__init__()
+        c = channels
+        self.conv0 = torch.nn.Conv2d(1, c, 3, stride=2, padding=1)
+        self.conv2 = torch.nn.Conv2d(c, c, 3, stride=2, padding=1, groups=c)
+        self.conv3 = torch.nn.Conv2d(c, c, 1)
+        self.conv5 = torch.nn.Conv2d(c, c, 3, stride=2, padding=1, groups=c)
+        self.conv6 = torch.nn.Conv2d(c, c, 1)
+        f8 = n_mels
+        for _ in range(3):
+            f8 = (f8 + 2 - 3) // 2 + 1
+        self.out = torch.nn.Linear(c * f8, d_model)
+
+    def forward(self, x):  # x [B, T, F]
+        x = torch.relu(self.conv0(x.unsqueeze(1)))
+        x = torch.relu(self.conv3(self.conv2(x)))
+        x = torch.relu(self.conv6(self.conv5(x)))
+        b, c, t, f = x.shape
+        return self.out(x.transpose(1, 2).reshape(b, t, c * f))  # channel-major
+
+
+def oracle_rel_sinusoid(T, d_model, device):
+    """NeMo RelPositionalEncoding: positions T-1 .. -(T-1), sin/cos interleaved."""
+    pos = torch.arange(T - 1, -T, -1, dtype=torch.float32, device=device).unsqueeze(1)
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
+                    * -(np.log(10000.0) / d_model))
+    pe = torch.zeros(2 * T - 1, d_model, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
+class OracleRelPosMHSA(torch.nn.Module):
+    def __init__(self, d_model, n_heads):
+        super().__init__()
+        self.h, self.dk = n_heads, d_model // n_heads
+        self.linear_q = torch.nn.Linear(d_model, d_model)
+        self.linear_k = torch.nn.Linear(d_model, d_model)
+        self.linear_v = torch.nn.Linear(d_model, d_model)
+        self.linear_out = torch.nn.Linear(d_model, d_model)
+        self.linear_pos = torch.nn.Linear(d_model, d_model, bias=False)
+        self.pos_bias_u = torch.nn.Parameter(torch.randn(self.h, self.dk) * 0.1)
+        self.pos_bias_v = torch.nn.Parameter(torch.randn(self.h, self.dk) * 0.1)
+
+    def forward(self, x, pos_emb, mask):  # mask True where invalid
+        B, T, D = x.shape
+        q = self.linear_q(x).view(B, T, self.h, self.dk)
+        k = self.linear_k(x).view(B, T, self.h, self.dk).transpose(1, 2)
+        v = self.linear_v(x).view(B, T, self.h, self.dk).transpose(1, 2)
+        p = self.linear_pos(pos_emb).view(-1, self.h, self.dk).permute(1, 0, 2)
+        ac = torch.matmul((q + self.pos_bias_u).transpose(1, 2), k.transpose(-2, -1))
+        bd = torch.matmul((q + self.pos_bias_v).transpose(1, 2), p.unsqueeze(0).transpose(-2, -1))
+        b, h, qlen, pos_len = bd.shape  # NeMo rel_shift
+        bd = torch.nn.functional.pad(bd, (1, 0)).view(b, h, -1, qlen)[:, :, 1:]
+        bd = bd.reshape(b, h, qlen, pos_len)[:, :, :, :T]
+        scores = ((ac + bd) / np.sqrt(self.dk)).masked_fill(mask[:, None], -10000.0)
+        out = torch.matmul(torch.softmax(scores, dim=-1), v)
+        return self.linear_out(out.transpose(1, 2).reshape(B, T, D))
+
+
+class OracleConvModule(torch.nn.Module):
+    def __init__(self, d_model, kernel):
+        super().__init__()
+        self.pointwise_conv1 = torch.nn.Conv1d(d_model, 2 * d_model, 1)
+        self.depthwise_conv = torch.nn.Conv1d(d_model, d_model, kernel,
+                                              padding=(kernel - 1) // 2, groups=d_model)
+        self.batch_norm = torch.nn.BatchNorm1d(d_model)
+        with torch.no_grad():  # eval-mode statistics that exercise the BN fold
+            self.batch_norm.running_mean.normal_(0, 0.1)
+            self.batch_norm.running_var.uniform_(0.5, 1.5)
+            self.batch_norm.weight.uniform_(0.5, 1.5)
+            self.batch_norm.bias.normal_(0, 0.1)
+        self.pointwise_conv2 = torch.nn.Conv1d(d_model, d_model, 1)
+
+    def forward(self, x, pad_mask):
+        x = torch.nn.functional.glu(self.pointwise_conv1(x.transpose(1, 2)), dim=1)
+        x = self.depthwise_conv(x.masked_fill(pad_mask.unsqueeze(1), 0.0))
+        x = self.pointwise_conv2(torch.nn.functional.silu(self.batch_norm(x)))
+        return x.transpose(1, 2)
+
+
+class OracleFFN(torch.nn.Module):
+    def __init__(self, d_model, d_ff):
+        super().__init__()
+        self.linear1 = torch.nn.Linear(d_model, d_ff)
+        self.linear2 = torch.nn.Linear(d_ff, d_model)
+
+    def forward(self, x):
+        return self.linear2(torch.nn.functional.silu(self.linear1(x)))
+
+
+class OracleConformerLayer(torch.nn.Module):
+    def __init__(self, d_model, n_heads, d_ff, kernel):
+        super().__init__()
+        self.norm_feed_forward1 = torch.nn.LayerNorm(d_model)
+        self.feed_forward1 = OracleFFN(d_model, d_ff)
+        self.norm_self_att = torch.nn.LayerNorm(d_model)
+        self.self_attn = OracleRelPosMHSA(d_model, n_heads)
+        self.norm_conv = torch.nn.LayerNorm(d_model)
+        self.conv = OracleConvModule(d_model, kernel)
+        self.norm_feed_forward2 = torch.nn.LayerNorm(d_model)
+        self.feed_forward2 = OracleFFN(d_model, d_ff)
+        self.norm_out = torch.nn.LayerNorm(d_model)
+
+    def forward(self, x, pos_emb, att_mask, pad_mask):
+        x = x + 0.5 * self.feed_forward1(self.norm_feed_forward1(x))
+        x = x + self.self_attn(self.norm_self_att(x), pos_emb, att_mask)
+        x = x + self.conv(self.norm_conv(x), pad_mask)
+        x = x + 0.5 * self.feed_forward2(self.norm_feed_forward2(x))
+        return self.norm_out(x)
+
+
+class OracleEncoder(torch.nn.Module):
+    """NeMo's FastConformer encoder written from its public semantics."""
+
+    def __init__(self, ccfg):
+        super().__init__()
+        d = ccfg.d_model
+        self.pre_encode = OracleSubsampling(ccfg.n_mels, ccfg.subsampling_channels, d)
+        self.layers = torch.nn.ModuleList(
+            OracleConformerLayer(d, ccfg.n_heads, d * ccfg.ffn_expansion, ccfg.conv_kernel)
+            for _ in range(ccfg.n_layers))
+        self.xscale = float(np.sqrt(d)) if ccfg.xscale else None
+        self.d_model = d
+
+    def forward(self, mel, lengths):  # mel [B, F, T]
+        x = self.pre_encode(mel.transpose(1, 2))
+        if self.xscale:
+            x = x * self.xscale
+        T = x.shape[1]
+        out_len = lengths
+        for _ in range(3):
+            out_len = torch.div(out_len + 2 - 3, 2, rounding_mode="floor") + 1
+        valid = torch.arange(T, device=x.device)[None, :] < out_len[:, None]
+        att_mask = ~(valid[:, :, None] & valid[:, None, :])
+        pos_emb = oracle_rel_sinusoid(T, self.d_model, x.device)
+        for layer in self.layers:
+            x = layer(x, pos_emb, att_mask, ~valid)
+        return x, out_len
+
+    def nemo_state_dict(self) -> dict[str, torch.Tensor]:
+        """Own parameters under NeMo's checkpoint keys, on the CPU."""
+        names = {"pre_encode.conv0": "pre_encode.conv.0", "pre_encode.conv2": "pre_encode.conv.2",
+                 "pre_encode.conv3": "pre_encode.conv.3", "pre_encode.conv5": "pre_encode.conv.5",
+                 "pre_encode.conv6": "pre_encode.conv.6"}
+        sd = {}
+        for key, value in self.state_dict().items():
+            if key.endswith("num_batches_tracked"):
+                continue
+            owner, leaf = key.rsplit(".", 1)
+            sd[f"encoder.{names.get(owner, owner)}.{leaf}"] = value.detach().cpu()
+        return sd
+
+
+def nemo_checkpoint(ccfg, pcfg, seed: int, device) -> tuple[OracleEncoder, dict]:
+    """A seeded NeMo FastConformer-TDT checkpoint: the oracle encoder (its
+    torch init on `device`) and the state dict in NeMo's key names (CPU
+    tensors), with the TDT prediction net and joint drawn beside it."""
+    torch.manual_seed(seed)
+    with torch.device(device):
+        oracle = OracleEncoder(ccfg).eval()
+    sd = oracle.nemo_state_dict()
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=g) * 0.05
+    P, J = pcfg.pred_hidden, pcfg.joint_hidden
+    sd["decoder.prediction.embed.weight"] = rnd(pcfg.vocab_size + 1, P)
+    for layer in range(pcfg.n_layers):
+        for kind, cols in (("ih", P), ("hh", P)):
+            sd[f"decoder.prediction.dec_rnn.lstm.weight_{kind}_l{layer}"] = rnd(4 * P, cols)
+            sd[f"decoder.prediction.dec_rnn.lstm.bias_{kind}_l{layer}"] = rnd(4 * P)
+    n_out = pcfg.num_token_logits + pcfg.n_durations
+    for key, shape in (("joint.enc", (J, pcfg.enc_hidden)), ("joint.pred", (J, P)),
+                       ("joint.joint_net.2", (n_out, J))):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = rnd(*shape), rnd(shape[0])
+    return oracle, sd
+
+
+def nemo_tar(path: Path, sd: dict, yaml_text: str) -> None:
+    """A `.nemo` archive: `model_weights.ckpt` and `model_config.yaml`."""
+    import io
+    import tarfile
+
+    buf = io.BytesIO()
+    torch.save(sd, buf)
+    with tarfile.open(path, "w") as tar:
+        for name, data in (("./model_weights.ckpt", buf.getvalue()),
+                           ("./model_config.yaml", yaml_text.encode())):
+            info = tarfile.TarInfo(name)
+            info.size = len(data)
+            tar.addfile(info, io.BytesIO(data))
+
+
+def npz_key_count(path: Path) -> int:
+    with np.load(path) as data:
+        return len(data.files)
+
+
+def valid_rel_l2(a: torch.Tensor, b: torch.Tensor, lengths: list[int]) -> float:
+    """Relative L2 of a against b over each row's first lengths[i] frames."""
+    a = torch.cat([a[i, :n] for i, n in enumerate(lengths)])
+    b = torch.cat([b[i, :n] for i, n in enumerate(lengths)])
+    return rel_l2(a.double(), b.double())
+
+
+def phase_convert(attn, i8, device, smi: str) -> dict:
+    """Checkpoint conversion on the port, then serving from its npz: a seeded
+    full-width Parakeet v3 checkpoint in NeMo's key names (`torch.save`, raw
+    ckpt) through `convert_nemo_file`; a test-tiny `.nemo` tar with a
+    `model_config.yaml` (its overrides apply where PyYAML is installed, the
+    preset stays where it is not, as in JAX); the converted v3 through
+    `AsrModels.load(checkpoint_dir=..., allow_random_init=False)` in bf16 and
+    int8 and `AsrManager` on 15 s requests (24 attention launches per encoder
+    call, 265 int8 launches per int8 call); its f32 encoder against the NeMo
+    oracle on the raw state dict; a test-width Supertonic-3 ONNX release
+    converted in place by `Supertonic3Manager` and synthesized."""
+    import importlib.util
+    import tempfile
+    from dataclasses import replace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from fluidaudio_tpu_torch.convert.parakeet import convert_nemo_file
+    from fluidaudio_tpu_torch.convert.supertonic3 import STAGES, synthesize_supertonic3_fixture
+    from fluidaudio_tpu_torch.models.conformer import ConformerEncoder
+    from fluidaudio_tpu_torch.models.predictor import RnntJoint, RnntPredictor
+    from fluidaudio_tpu_torch.models.supertonic3 import SUPERTONIC3_TEST
+    from fluidaudio_tpu_torch.models.zoo import ASR_VERSIONS, AsrModels, disable_tf32
+    from fluidaudio_tpu_torch.tts.supertonic_manager import Supertonic3Manager
+    from fluidaudio_tpu_torch.utils.weights import from_jax_params, load_npz, load_state
+
+    disable_tf32()
+    paths = {}
+    spec = ASR_VERSIONS["v3"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_convert_") as tmp:
+        tmp = Path(tmp)
+        # -- the full-width v3 checkpoint, converted
+        t0 = time.perf_counter()
+        oracle, sd = nemo_checkpoint(spec.conformer, spec.predictor, CONVERT_SEED, device)
+        n_params = sum(v.numel() for v in sd.values())
+        ckpt = tmp / "parakeet-tdt-0.6b-v3.ckpt"
+        torch.save(sd, ckpt)
+        del sd
+        write_s = time.perf_counter() - t0
+        ckpt_gb = ckpt.stat().st_size / 1e9
+        t0 = time.perf_counter()
+        convert_nemo_file(ckpt, tmp / "v3", spec.conformer, spec.predictor)
+        convert_s = time.perf_counter() - t0
+        parts = {name: tmp / "v3" / f"{name}.npz" for name in ("encoder", "predictor", "joint")}
+        check(all(p.exists() for p in parts.values()), "convert_nemo_file wrote no npz")
+        npz_gb = sum(p.stat().st_size for p in parts.values()) / 1e9
+        ckpt.unlink()
+        print(f"phase 20 convert [{smi}]: Parakeet v3 checkpoint ({spec.conformer.n_layers} x "
+              f"{spec.conformer.d_model}, Dh {spec.conformer.head_dim}, {n_params / 1e9:.3f} B "
+              f"params, NeMo keys, seed {CONVERT_SEED}) drawn and written with torch.save in "
+              f"{write_s:.2f} s ({ckpt_gb:.3f} GB); convert_nemo_file {convert_s:.2f} s: "
+              f"{npz_gb:.3f} GB of npz, {npz_gb / convert_s:.3f} GB/s written, "
+              f"{ckpt_gb / convert_s:.3f} GB/s of checkpoint read", flush=True)
+
+        # -- a test-tiny .nemo tar whose yaml adds a layer to the preset
+        tiny = ASR_VERSIONS["test-tiny"]
+        deeper = replace(tiny.conformer, n_layers=tiny.conformer.n_layers + 1, dtype="float32")
+        tiny_oracle, tiny_sd = nemo_checkpoint(deeper, tiny.predictor, CONVERT_SEED + 1, "cpu")
+        nemo_tar(tmp / "tiny.nemo", tiny_sd,
+                 f"encoder:\n  n_layers: {deeper.n_layers}\n  d_model: {deeper.d_model}\n")
+        convert_nemo_file(tmp / "tiny.nemo", tmp / "tiny", tiny.conformer, tiny.predictor)
+        have_yaml = importlib.util.find_spec("yaml") is not None
+        with np.load(tmp / "tiny" / "encoder.npz") as data:
+            blocks = {k.split("/")[1] for k in data.files if k.split("/")[1].startswith("block")}
+        n_layers = deeper.n_layers if have_yaml else tiny.conformer.n_layers
+        check(len(blocks) == n_layers,
+              f".nemo tar: {len(blocks)} blocks, want {n_layers} (PyYAML "
+              f"{'present' if have_yaml else 'absent'})")
+        enc_cfg = replace(deeper, n_layers=n_layers)
+        tiny_enc = ConformerEncoder(enc_cfg, device=device).eval()
+        for part, module in (("encoder", tiny_enc),
+                             ("predictor", RnntPredictor(tiny.predictor, device=device)),
+                             ("joint", RnntJoint(tiny.predictor, device=device))):
+            load_state(module, load_npz(tmp / "tiny" / f"{part}.npz"))  # raises on a key left over
+        tiny_oracle.layers = tiny_oracle.layers[:n_layers]
+        rs = np.random.RandomState(CONVERT_SEED)
+        mel = rs.randn(2, enc_cfg.n_mels, 160).astype(np.float32)
+        mel[1, :, 100:] = 0.0
+        lengths = [160, 100]
+        with torch.no_grad():
+            want, want_len = tiny_oracle(torch.from_numpy(mel), torch.tensor(lengths))
+            got, got_len = tiny_enc(torch.from_numpy(mel).to(device),
+                                    torch.tensor(lengths, dtype=torch.int32, device=device))
+        check(got_len.tolist() == want_len.tolist(), ".nemo tar: encoder lengths differ")
+        tiny_rel = valid_rel_l2(got.cpu(), want, want_len.tolist())
+        check(tiny_rel <= ORACLE_TOL, f".nemo tar: encoder vs NeMo oracle rel L2 {tiny_rel}")
+        print(f"phase 20 .nemo tar (test-tiny, model_config.yaml with n_layers "
+              f"{deeper.n_layers}): PyYAML {'present: the yaml applied' if have_yaml else 'absent: the preset kept, as JAX does'} "
+              f"({n_layers} blocks); every key consumed on the card; f32 encoder on the card vs "
+              f"the NeMo oracle on the CPU rel L2 {tiny_rel:.3e}", flush=True)
+
+        # -- the converted v3, served in bf16 and int8
+        keys = {name: npz_key_count(p) for name, p in parts.items()}
+        for quantization, label in (("none", "bf16"), ("int8", "int8")):
+            models, manager, launches, line = v3_requests(
+                attn, i8, device, quantization, checkpoint_dir=tmp / "v3",
+                seconds=CONVERTED_REQUEST_S)
+            if quantization == "none":
+                for name, module in (("encoder", models.encoder), ("predictor", models.predictor),
+                                     ("joint", models.joint)):
+                    check(len(module.state_dict()) == keys[name],
+                          f"converted {name}: {keys[name]} npz keys, "
+                          f"{len(module.state_dict())} in the module")
+                audio = speechlike(np.random.RandomState(CONVERT_SEED), 15.0)
+                manager.transcribe(audio)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    manager.transcribe(audio)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+                kernels, busy = device_activity(prof)
+                timing = (f"timing [{smi}] converted v3 bf16, one 15 s request: {wall:.3f} ms "
+                          f"(host wall, profiled), {kernels} kernel launches, {busy:.3f} ms "
+                          f"device busy, idle share {max(0.0, 1 - busy / wall):.3f}")
+            print(f"phase 20 converted {line} | npz keys {keys}, each consumed", flush=True)
+            paths[f"converted v3 {label}, 3 x 15 s (phase 20)"] = launches
+            del models, manager
+            torch.cuda.empty_cache()
+        print(timing, flush=True)
+
+        # -- the converted f32 encoder against the NeMo oracle on the raw weights
+        models = AsrModels.load("v3", checkpoint_dir=tmp / "v3", device=device,
+                                allow_random_init=False, dtype="float32")
+        rs = np.random.RandomState(CONVERT_SEED + 2)
+        audio_len = [WINDOW, 160_000]
+        audio = torch.from_numpy(np.stack([speechlike(rs, 15.0) for _ in audio_len])).to(device)
+        mel, mel_len = models.mel(audio, torch.tensor(audio_len, dtype=torch.int32, device=device))
+        mel = mel.float() * (torch.arange(mel.shape[-1], device=device)[None, None, :]
+                             < mel_len[:, None, None])
+        (got, got_len), c = counted(attn, i8, lambda: models.encoder(mel, mel_len))
+        check(c["relpos_attention"] == spec.conformer.n_layers and c["int8_matmul_fused"] == 0,
+              f"converted f32 encoder: launches {c}")
+        with torch.no_grad():
+            want, want_len = oracle(mel, mel_len.long())
+        check(got_len.tolist() == want_len.tolist(), "converted f32 encoder: lengths differ")
+        rel = valid_rel_l2(got, want, want_len.tolist())
+        check(rel <= ORACLE_TOL, f"converted f32 encoder vs the NeMo oracle: rel L2 {rel}")
+        paths["converted v3 f32 encoder vs NeMo oracle (phase 20)"] = c
+        print(f"phase 20 converted v3 f32 encoder (the f32 attention kernel at Dh "
+              f"{spec.conformer.head_dim}, TF32 off) vs the NeMo oracle on the raw state dict, "
+              f"on the card, 15 s x 2 ragged: relative L2 {rel:.3e} over valid frames (tol "
+              f"{ORACLE_TOL:g}), launches {c}", flush=True)
+        del models, oracle
+        torch.cuda.empty_cache()
+
+        # -- Supertonic-3: a staged ONNX release converted in place
+        release = tmp / "supertonic3"
+        truth = synthesize_supertonic3_fixture(release, SUPERTONIC3_TEST, seed=CONVERT_SEED)
+
+        def staged():
+            t0 = time.perf_counter()
+            mgr = Supertonic3Manager(SUPERTONIC3_TEST, checkpoint_dir=release, device=device)
+            load_s = time.perf_counter() - t0
+            return mgr, load_s, mgr.synthesize(SUPERTONIC_TEXT, "F1", "en", seed=5)
+
+        (mgr, load_s, res), c = counted(attn, i8, staged)
+        check(all((release / f"{stage}.npz").exists() for stage in STAGES),
+              "Supertonic-3: the release was not converted in place")
+        for stage, module in (("text_encoder", mgr.text_enc), ("duration_predictor", mgr.dur_pred),
+                              ("vector_estimator", mgr.estimator), ("vocoder", mgr.vocoder)):
+            want_state = from_jax_params(truth[stage])
+            own = module.state_dict()
+            check(set(own) == set(want_state) and all(
+                torch.equal(own[k].cpu(), torch.as_tensor(v)) for k, v in want_state.items()),
+                f"Supertonic-3 {stage}: the manager does not hold the release's weights")
+        check(bool(np.isfinite(res.samples).all()) and res.samples.size > 0,
+              "Supertonic-3: samples not finite")
+        check(c["relpos_attention"] == 0 and c["int8_matmul_fused"] == 0,
+              f"Supertonic-3: launches {c}")
+        paths["Supertonic-3 converted in place (phase 20)"] = c
+        print(f"phase 20 Supertonic-3 (SUPERTONIC3_TEST) staged ONNX release with no npz: "
+              f"converted in place and loaded in {load_s:.2f} s, every stage holds the release's "
+              f"weights; {res.duration:.2f} s of audio, finite; launches {c}", flush=True)
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU", file=sys.stderr)
@@ -3684,6 +4106,8 @@ def main() -> int:
     elapsed("phase 18")
     paths.update(phase_cli(attn, i8, device, smi)[0])
     elapsed("phase 19")
+    paths.update(phase_convert(attn, i8, device, smi))
+    elapsed("phase 20")
     print(json.dumps({"kernels": [{
         "name": "relpos_attention",
         "route": "cuda",

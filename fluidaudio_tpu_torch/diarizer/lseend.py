@@ -29,6 +29,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from fluidaudio_tpu_torch.convert.lseend import LSEEND_VARIANTS  # noqa: F401 (re-exported)
 from fluidaudio_tpu_torch.diarizer.types import (
     DiarizationResult,
     PipelineTimings,
@@ -56,9 +57,6 @@ from fluidaudio_tpu_torch.utils.logging import get_logger
 from fluidaudio_tpu_torch.utils.weights import load_npz, load_state
 
 logger = get_logger("diarizer.lseend")
-
-# the 4 upstream fine-tunes (reference ModelNames.swift:49-52)
-LSEEND_VARIANTS = ("ami", "ch", "dih2", "dih3")
 
 
 class LSEENDDiarizer:

@@ -13,8 +13,8 @@ decode to phoneme ids), HF `BartForConditionalGeneration` semantics:
   - lm_head = shared embedding transposed + final_logits_bias
 
 Module and parameter names mirror the flax tree, so `utils.weights.load_npz`
-maps a JAX-saved `bart.npz` directly. `config_from_hf` is the JAX package's
-`convert/bart.py::config_from_hf`.
+maps a JAX-saved `bart.npz` directly. `config_from_hf` is
+`convert/bart.py`'s (as in JAX), re-exported here.
 """
 
 from __future__ import annotations
@@ -48,26 +48,6 @@ BART_G2P_TEST = BartConfig(vocab_size=80, d_model=64, encoder_layers=2,
                            decoder_layers=2, encoder_attention_heads=4,
                            decoder_attention_heads=4, encoder_ffn_dim=128,
                            decoder_ffn_dim=128, max_position_embeddings=64)
-
-
-def config_from_hf(cfg_json: dict) -> BartConfig:
-    """An HF `config.json` payload -> BartConfig (HF's token-id defaults)."""
-    return BartConfig(
-        vocab_size=cfg_json["vocab_size"],
-        d_model=cfg_json["d_model"],
-        encoder_layers=cfg_json["encoder_layers"],
-        decoder_layers=cfg_json["decoder_layers"],
-        encoder_attention_heads=cfg_json["encoder_attention_heads"],
-        decoder_attention_heads=cfg_json["decoder_attention_heads"],
-        encoder_ffn_dim=cfg_json["encoder_ffn_dim"],
-        decoder_ffn_dim=cfg_json["decoder_ffn_dim"],
-        max_position_embeddings=cfg_json["max_position_embeddings"],
-        scale_embedding=cfg_json.get("scale_embedding", False),
-        pad_token_id=cfg_json.get("pad_token_id", 1),
-        bos_token_id=cfg_json.get("bos_token_id", 0),
-        eos_token_id=cfg_json.get("eos_token_id", 2),
-        decoder_start_token_id=cfg_json.get("decoder_start_token_id", 2),
-    )
 
 
 class _Embed(nn.Module):
@@ -186,3 +166,13 @@ def bart_greedy_decode(model: BartG2P, enc_ids: torch.Tensor, enc_mask: torch.Te
         dec[:, t + 2] = tok
         done = done | (tok == cfg.eos_token_id)
     return dec[:, 2:]
+
+
+def __getattr__(name: str):
+    # `convert/bart.py` imports this module's config, so the converter's
+    # `config_from_hf` is re-exported lazily
+    if name == "config_from_hf":
+        from fluidaudio_tpu_torch.convert.bart import config_from_hf
+
+        return config_from_hf
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

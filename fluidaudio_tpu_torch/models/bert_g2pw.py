@@ -13,8 +13,8 @@ polyphone label set. HF `BertModel` semantics:
   - head: hidden[target_position] -> Linear(num_labels)
 
 Module and parameter names mirror the flax tree, so `utils.weights.load_npz`
-maps a JAX-saved `g2pw.npz` directly. `config_from_hf` is the JAX package's
-`convert/g2pw.py::config_from_hf`.
+maps a JAX-saved `g2pw.npz` directly. `config_from_hf` is
+`convert/g2pw.py`'s (as in JAX), re-exported here.
 """
 
 from __future__ import annotations
@@ -47,21 +47,6 @@ G2PW_TEST = BertG2pwConfig(vocab_size=128, hidden_size=32,
                            num_hidden_layers=2, num_attention_heads=4,
                            intermediate_size=64, max_position_embeddings=64,
                            num_labels=16)
-
-
-def config_from_hf(cfg_json: dict, num_labels: int | None = None) -> BertG2pwConfig:
-    """An HF BERT `config.json` payload -> BertG2pwConfig."""
-    return BertG2pwConfig(
-        vocab_size=cfg_json["vocab_size"],
-        hidden_size=cfg_json["hidden_size"],
-        num_hidden_layers=cfg_json["num_hidden_layers"],
-        num_attention_heads=cfg_json["num_attention_heads"],
-        intermediate_size=cfg_json["intermediate_size"],
-        max_position_embeddings=cfg_json["max_position_embeddings"],
-        type_vocab_size=cfg_json.get("type_vocab_size", 2),
-        layer_norm_eps=cfg_json.get("layer_norm_eps", 1e-12),
-        num_labels=num_labels or cfg_json.get("num_labels", 700),
-    )
 
 
 class BertSelfAttention(nn.Module):
@@ -130,3 +115,13 @@ class BertG2pw(nn.Module):
             x = L("ffn_ln")(x + h)
         idx = target_position.long()[:, None, None].expand(-1, 1, x.shape[-1])
         return self.classifier(torch.take_along_dim(x, idx, dim=1)[:, 0])
+
+
+def __getattr__(name: str):
+    # `convert/g2pw.py` imports this module's config, so the converter's
+    # `config_from_hf` is re-exported lazily
+    if name == "config_from_hf":
+        from fluidaudio_tpu_torch.convert.g2pw import config_from_hf
+
+        return config_from_hf
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

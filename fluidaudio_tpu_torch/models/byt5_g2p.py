@@ -17,7 +17,8 @@ of n / max_exact + 1e-9, divided by the f64 log ratio rounded to f32,
 truncated to int32), so every bucket equals JAX's. Module and parameter
 names mirror the flax tree (`enc<i>_attn`, `dec<i>_self`, ...), so
 `utils.weights.load_npz` maps a JAX-saved `byt5.npz` directly.
-`config_from_hf` is the JAX package's `convert/byt5.py::config_from_hf`.
+`config_from_hf` is
+`convert/byt5.py`'s (as in JAX), re-exported here.
 
 `byt5_greedy_decode` runs JAX's `lax.scan` of `max_steps` as fixed steps on
 the device (the whole decoder over the buffer each step, a done-mask, no
@@ -61,26 +62,6 @@ BYT5_TEST = ByT5Config(
     num_decoder_layers=2, num_heads=4, relative_attention_num_buckets=8,
     relative_attention_max_distance=20,
 )
-
-
-def config_from_hf(cfg_json: dict) -> ByT5Config:
-    """Build a ByT5Config from an HF `config.json` payload."""
-    return ByT5Config(
-        vocab_size=cfg_json["vocab_size"],
-        d_model=cfg_json["d_model"],
-        d_kv=cfg_json["d_kv"],
-        d_ff=cfg_json["d_ff"],
-        num_layers=cfg_json["num_layers"],
-        num_decoder_layers=cfg_json.get("num_decoder_layers",
-                                        cfg_json["num_layers"]),
-        num_heads=cfg_json["num_heads"],
-        relative_attention_num_buckets=cfg_json.get(
-            "relative_attention_num_buckets", 32),
-        relative_attention_max_distance=cfg_json.get(
-            "relative_attention_max_distance", 128),
-        layer_norm_epsilon=cfg_json.get("layer_norm_epsilon", 1e-6),
-        tie_word_embeddings=cfg_json.get("tie_word_embeddings", False),
-    )
 
 
 def _gelu_new(x: torch.Tensor) -> torch.Tensor:
@@ -273,3 +254,13 @@ def byt5_greedy_decode(model: ByT5G2P, enc_ids: torch.Tensor, enc_mask: torch.Te
         dec[:, t + 1] = tok
         done = done | (tok == EOS_ID)
     return dec[:, 1:]
+
+
+def __getattr__(name: str):
+    # `convert/byt5.py` imports this module's config, so the converter's
+    # `config_from_hf` is re-exported lazily
+    if name == "config_from_hf":
+        from fluidaudio_tpu_torch.convert.byt5 import config_from_hf
+
+        return config_from_hf
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

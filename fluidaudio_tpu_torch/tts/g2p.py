@@ -266,7 +266,8 @@ def load_bart_fallback(checkpoint_dir: str | Path, device=None):
 
     import torch
 
-    from fluidaudio_tpu_torch.models.bart_g2p import BartG2P, bart_greedy_decode, config_from_hf
+    from fluidaudio_tpu_torch.convert.bart import config_from_hf
+    from fluidaudio_tpu_torch.models.bart_g2p import BartG2P, bart_greedy_decode
     from fluidaudio_tpu_torch.utils.device import resolve_device
     from fluidaudio_tpu_torch.utils.weights import load_npz, load_state
 
@@ -372,7 +373,8 @@ class MultilingualG2P:
         ckpt = base / "byt5.npz"
         cfg_json = base / "config.json"
         if ckpt.exists() and cfg_json.exists():
-            from fluidaudio_tpu_torch.models.byt5_g2p import ByT5G2P, config_from_hf
+            from fluidaudio_tpu_torch.convert.byt5 import config_from_hf
+            from fluidaudio_tpu_torch.models.byt5_g2p import ByT5G2P
 
             self.byt5 = ByT5G2P(config_from_hf(json.loads(cfg_json.read_text())),
                                 device=self.device).eval()

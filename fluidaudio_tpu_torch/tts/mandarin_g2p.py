@@ -953,7 +953,8 @@ class MandarinG2pw:
         has_txt = (base / "POLYPHONIC_CHARS.txt").exists()
         if not (all((base / f).exists() for f in needed) and (has_json or has_txt)):
             return None
-        from fluidaudio_tpu_torch.models.bert_g2pw import BertG2pw, config_from_hf
+        from fluidaudio_tpu_torch.convert.g2pw import config_from_hf
+        from fluidaudio_tpu_torch.models.bert_g2pw import BertG2pw
         from fluidaudio_tpu_torch.utils.device import resolve_device
         from fluidaudio_tpu_torch.utils.weights import load_npz, load_state
 

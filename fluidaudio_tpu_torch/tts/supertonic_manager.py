@@ -14,8 +14,9 @@ device (`denoise`, JAX's unrolled loop); the vocoder runs and the samples
 come back (one copy), trimmed to the duration.
 
 Weights: `checkpoint_dir` holds `{text_encoder,duration_predictor,
-vector_estimator,vocoder}.npz` (converted; the JAX package's
-`convert/supertonic3.py` turns a staged ONNX release into them);
+vector_estimator,vocoder}.npz` (converted); a staged ONNX release there
+with none of them (`{text_encoder,...}.onnx`) is converted in place by
+`convert/supertonic3.py` and saved beside it first, as JAX does;
 `checkpoint_dir=None` reads the model cache's `Repo.SUPERTONIC3` folder;
 without them the weights are seeded random, drawn on `device`.
 """
@@ -296,8 +297,19 @@ class Supertonic3Manager:
         self.vocoder = Supertonic3Vocoder(cfg, device=dev).eval()
         gen = torch.Generator(device=dev).manual_seed(rng_seed)
         base = Path(checkpoint_dir) if checkpoint_dir else DownloadUtils.repo_dir(Repo.SUPERTONIC3)
-        for part, module in (("text_encoder", self.text_enc), ("duration_predictor", self.dur_pred),
-                             ("vector_estimator", self.estimator), ("vocoder", self.vocoder)):
+        parts = (("text_encoder", self.text_enc), ("duration_predictor", self.dur_pred),
+                 ("vector_estimator", self.estimator), ("vocoder", self.vocoder))
+        if all((base / f"{part}.onnx").exists() for part, _ in parts) and not any(
+            (base / f"{part}.npz").exists() for part, _ in parts
+        ):
+            # staged upstream ONNX release, not yet converted: run the
+            # topology-based converter in place (convert/supertonic3.py)
+            from fluidaudio_tpu_torch.convert.supertonic3 import convert_supertonic3
+            from fluidaudio_tpu_torch.utils.checkpoint import save_params
+
+            for part, tree in convert_supertonic3(base, cfg).items():
+                save_params(base / f"{part}.npz", tree)
+        for part, module in parts:
             random_init_supertonic3_(module, gen)
             f = base / f"{part}.npz"
             if f.exists():

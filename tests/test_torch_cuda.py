@@ -571,3 +571,38 @@ def test_cohere_decode_on_the_card_syncs_once_per_8_steps(cuda):
     assert torch.equal(out[0].tokens.cpu(), out[1].tokens)
     assert torch.equal(out[0].counts.cpu(), out[1].counts)
     assert out[0].host_syncs <= out[0].steps // 8 + 1
+
+
+# ------------------------------------------------------------ converted checkpoints
+
+
+def test_converted_nemo_checkpoint_on_the_card_matches_the_oracle(cuda, tmp_path):
+    """A seeded test-tiny NeMo checkpoint (`chip_smoke.nemo_checkpoint`, raw
+    ckpt) through the port's `convert_nemo_file`, loaded on the card with
+    every key required: its f32 encoder launches the kernel once per layer
+    and matches the NeMo oracle on the CPU on the raw weights (relative L2
+    over valid frames within 1e-4, TF32 off)."""
+    from dataclasses import replace
+
+    from chip_smoke import nemo_checkpoint, valid_rel_l2
+    from fluidaudio_tpu_torch.convert.parakeet import convert_nemo_file
+    from fluidaudio_tpu_torch.models.zoo import ASR_VERSIONS, AsrModels
+
+    spec = ASR_VERSIONS["test-tiny"]
+    oracle, sd = nemo_checkpoint(replace(spec.conformer, dtype="float32"), spec.predictor, 3,
+                                 "cpu")
+    torch.save(sd, tmp_path / "model.ckpt")
+    convert_nemo_file(tmp_path / "model.ckpt", tmp_path / "out", spec.conformer, spec.predictor)
+    models = AsrModels.load("test-tiny", checkpoint_dir=tmp_path / "out", device=cuda,
+                            allow_random_init=False, dtype="float32")
+    mel = torch.randn(2, spec.conformer.n_mels, 160, generator=torch.Generator().manual_seed(4))
+    mel[1, :, 100:] = 0.0
+    lengths = torch.tensor([160, 100], dtype=torch.int32)
+    before = attn.relpos_attention.launches
+    got, got_len = models.encoder(mel.to(cuda), lengths.to(cuda))
+    torch.cuda.synchronize()
+    assert attn.relpos_attention.launches - before == spec.conformer.n_layers
+    with torch.no_grad():
+        want, want_len = oracle(mel, lengths.long())
+    assert got_len.tolist() == want_len.tolist()
+    assert valid_rel_l2(got.cpu(), want, want_len.tolist()) <= 1e-4

@@ -12,6 +12,7 @@ JAX functions on the same seeded inputs.
 
 from __future__ import annotations
 
+import ctypes
 import inspect
 import re
 import types
@@ -47,6 +48,44 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
+
+
+class PortNativeLibrary:
+    """The port's native libraries behind the JAX loader's one-library
+    interface (`fluidaudio_tpu.native.load_native` returns one CDLL with every
+    symbol): a symbol resolves in the port's library that its prefix names,
+    built from the same `native/` source by `native/cxx.py` at first use.
+    `hasattr` on a symbol no library has is False, as on a CDLL."""
+
+    def __init__(self):
+        from fluidaudio_tpu_torch.native import fastcluster, flac, itn, sysinfo
+
+        self._by_prefix = (("flac_", flac), ("fastcluster_", fastcluster), ("nemo_", itn),
+                           ("fluidaudio_", sysinfo))
+        self._libs: dict = {}
+
+    def __getattr__(self, name):
+        for prefix, module in self._by_prefix:
+            if name.startswith(prefix):
+                if prefix not in self._libs:  # a CDLL of its own: JAX sets restype/argtypes
+                    self._libs[prefix] = ctypes.CDLL(str(module.build_library()[0]))
+                return getattr(self._libs[prefix], name)
+        raise AttributeError(name)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_on_the_port_build():
+    """Put `PortNativeLibrary` into the JAX loader's `_LIB`/`_SEARCHED` slot
+    for a whole port test module, so that JAX code used as an oracle never
+    starts the loader's cmake build (a build that several test workers would
+    otherwise start at once in the same `native/build/`). A port test module
+    whose JAX oracle reaches the JAX native loader imports this fixture."""
+    from fluidaudio_tpu import native as jax_native
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_LIB", PortNativeLibrary())
+        mp.setattr(jax_native, "_SEARCHED", True)
+        yield
 
 
 def jax_module(test_file: str, modules=("",), overrides=None, edits=()) -> types.ModuleType:

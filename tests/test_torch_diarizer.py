@@ -31,7 +31,7 @@ from fluidaudio_tpu.train import tiny_corpus as jax_tc
 from fluidaudio_tpu_torch.diarizer.speaker_id import SpeakerVerifier as PortVerifier
 from fluidaudio_tpu_torch.train import fixtures as port_fixtures
 from tests.test_torch_custom_vocab import jax_cases, jax_fixtures as jax_test_fixtures
-from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
+from tests.test_torch_custom_vocab import jax_native_on_the_port_build, one_torch_thread  # noqa: F401
 
 REL_L2 = 1e-5
 

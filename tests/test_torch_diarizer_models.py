@@ -54,7 +54,7 @@ from fluidaudio_tpu_torch.models import wespeaker as port_wespeaker
 from fluidaudio_tpu_torch.native import fastcluster as port_fastcluster
 from fluidaudio_tpu_torch.train import fixtures as port_fixtures
 from fluidaudio_tpu_torch.utils.weights import from_jax_params, load_npz, load_state
-from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
+from tests.test_torch_custom_vocab import jax_native_on_the_port_build, one_torch_thread  # noqa: F401
 
 REL_L2 = 1e-5
 MEL_ATOL = 1e-2

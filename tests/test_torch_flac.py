@@ -5,9 +5,9 @@ Both decode bytes from the pure-Python encoder of `tests/test_flac.py`
 decorrelation, 24-bit sources): the port's `decode_flac`, whose library it
 builds from `native/flac/flac.cpp` with the host C++ compiler, must return
 the encoded PCM exactly and the same array, rate and error messages as the
-JAX binding (where the JAX package's native library is built; without it the
-encoded PCM alone is the reference). A `.flac` read through the port's
-`audio_io` must equal the same audio as WAV.
+JAX binding, which runs over the port's library put into the JAX loader's
+slot (`jax_native_on_the_port_build`), so that no cmake build starts. A
+`.flac` read through the port's `audio_io` must equal the same audio as WAV.
 """
 
 import numpy as np
@@ -16,8 +16,15 @@ import pytest
 from fluidaudio_tpu.native import flac as jax_flac
 from fluidaudio_tpu_torch.native import flac as port_flac
 from fluidaudio_tpu_torch.utils import audio_io
-from tests.test_flac import _pcm16, encode_flac
-from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
+from tests.test_torch_custom_vocab import jax_module
+from tests.test_torch_custom_vocab import jax_native_on_the_port_build, one_torch_thread  # noqa: F401
+
+# the pure-Python encoder of tests/test_flac.py, loaded with its decoder
+# imports pointed at the port's binding, so that its module-level
+# `native_available()` builds the port's library and never starts the JAX
+# loader's cmake build
+_TEST_FLAC = jax_module("test_flac.py", ("native.flac",))
+_pcm16, encode_flac = _TEST_FLAC._pcm16, _TEST_FLAC.encode_flac
 
 
 def _smooth(n=1500):
@@ -47,7 +54,8 @@ CASES = [
 
 
 def _jax_decoder():
-    """The JAX binding's decoder, or None where its library is not built."""
+    """The JAX binding's decoder (over the port's library), or None where it
+    reports no library."""
     return jax_flac.decode_flac if jax_flac.native_available() else None
 
 

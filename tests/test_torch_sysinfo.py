@@ -9,6 +9,7 @@ build starts), and the port's RSS readings are held against /proc and
 """
 
 import json
+import mmap
 
 import numpy as np
 import pytest
@@ -66,25 +67,41 @@ def test_failed_c_build_raises(tmp_path):
 
 
 def test_rss_reads_proc_as_the_jax_fallback_does():
-    """The shim reads /proc/self as the JAX module's fallbacks do (its peak
-    `resource`'s ru_maxrss, its current /proc/self/statm); the JAX functions
-    themselves are not called here, since they start the JAX loader's cmake
-    build."""
-    import resource
+    """The shim reads /proc/self as the JAX module's fallbacks do: its peak is
+    the kernel's VmHWM (/proc/self/status) and its current RSS
+    /proc/self/statm, each read in this process around the shim's call; the
+    current RSS grows by 64 MiB of fresh pages touched. `resource`'s
+    ru_maxrss (the JAX peak fallback) is not held against it: Linux carries
+    the high-water mark of the process that spawned this one across fork and
+    exec (a pytest-xdist worker inherits its parent's), so it can exceed
+    VmHWM by any amount, and it lags VmHWM by the kernel's unsynced RSS
+    counters. The JAX functions themselves are not called here, since they
+    start the JAX loader's cmake build."""
+    def vm_hwm():
+        with open("/proc/self/status") as f:
+            return next(int(line.split()[1]) * 1024 for line in f if line.startswith("VmHWM:"))
 
-    with open("/proc/self/status") as f:
-        hwm = next(int(line.split()[1]) * 1024 for line in f if line.startswith("VmHWM:"))
+    def statm():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * 4096
+
+    before = vm_hwm()
     peak = port_sysinfo.peak_rss_bytes()
-    assert hwm <= peak
-    assert abs(peak - resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024) < 64 * 2**20
-    with open("/proc/self/statm") as f:
-        statm = int(f.read().split()[1]) * 4096
+    assert before <= peak <= vm_hwm()
+    now = statm()
     cur = port_sysinfo.current_rss_bytes()
-    assert abs(cur - statm) < 16 * 1024 * 1024
-    block = np.ones(64 * 1024 * 1024 // 8)  # 64 MiB touched
-    assert port_sysinfo.current_rss_bytes() >= cur + 32 * 1024 * 1024
-    assert port_sysinfo.peak_rss_bytes() >= peak
-    del block
+    assert abs(cur - now) < 16 * 1024 * 1024 and abs(cur - statm()) < 16 * 1024 * 1024
+    # 64 MiB of fresh anonymous pages, each touched: a malloc'd block can
+    # come from heap pages a long-lived worker already holds resident
+    block = mmap.mmap(-1, 64 * 1024 * 1024)
+    pages = np.frombuffer(block, dtype=np.uint8)
+    pages[::4096] = 1
+    grown = port_sysinfo.current_rss_bytes()
+    assert grown >= cur + 32 * 1024 * 1024
+    assert port_sysinfo.peak_rss_bytes() >= max(peak, grown)
+    assert vm_hwm() >= port_sysinfo.peak_rss_bytes() - 16 * 1024 * 1024
+    del pages
+    block.close()
 
 
 def test_system_info_lists_cuda_devices_by_name(monkeypatch):
