@@ -185,7 +185,7 @@ line is not printed:
      audio follows the F0 track's last ulps, the CPU's gate outcome); `transcribe --version v3 --allow-random-init`
      on a 30 s file, its text that of `AsrManager.transcribe` on the card;
      `benchmark --workload all --batch 128` (its four metric lines);
-     `streaming-latency-benchmark --chunks 64 --iters 1` at the three tiers;
+     `streaming-latency-benchmark --chunks 16 --iters 1` at the three tiers;
      `diarize --mode sortformer --rttm` on 60 s, `tts-asr-verify
      --trained-fixture` and `normalize`; every command counted (the
      attention kernel once per layer of each encoder call whose head width
@@ -1083,34 +1083,38 @@ def phase_streaming_full_width(device, name: str, enc_cfg, chunk_ms: int) -> str
     return line
 
 
-def busy_ms(kernels) -> float:
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    total, end = 0.0, float("-inf")
-    for s, e in spans:
-        if e > end:
-            total += e - max(s, end)
-            end = e
-    return total / 1e3
+def device_activity(prof) -> tuple[int, float]:
+    """(kernel launches, device busy ms) of a CUDA profile, read from its raw
+    events: the profiler's event tree (`prof.events()`) takes minutes to
+    build at 10^5-10^6 launches."""
+    spans, kernels = [], 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type().name != "CUDA":
+            continue
+        kernels += not e.name().startswith(("Memcpy", "Memset"))
+        spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    total, end = 0, float("-inf")
+    for start, stop in sorted(spans):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return kernels, total / 1e6
 
 
-def profile_calls(fn, n: int, host_ops: bool = True) -> tuple[float, float]:
-    """torch.profiler over n calls of fn -> (kernel launches per call, device
-    busy ms per call). Copies and memsets are busy time, not launches.
-    `host_ops=False` records the device alone (no host op events: a path of
-    ~10^5 launches then profiles in seconds, not minutes)."""
-    from torch.autograd import DeviceType
+def profile_calls(fn, n: int) -> tuple[float, float]:
+    """torch.profiler over n calls of fn, the device alone -> (kernel launches
+    per call, device busy ms per call). Copies and memsets are busy time, not
+    launches."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    activities = [ProfilerActivity.CPU] if host_ops else []
-    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    check(bool(device), "the profiler recorded no device time")
-    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
-    return len(kernels) / n, busy_ms(device) / n
+    kernels, busy = device_activity(prof)
+    check(busy > 0, "the profiler recorded no device time")
+    return kernels / n, busy / n
 
 
 def calibrate_stream_blank_bias(mgr, rs, chunks: int, streams: int = 8) -> float:
@@ -1729,6 +1733,7 @@ TRAINED_CTC = TRAINED / "ctc"
 FAMILY_CARD_TOL = 1e-4
 VAD_PROB_TOL = 1e-5
 VAD_ROWS, VAD_ROW_S = 64, 60.0  # the Silero batch of phase 15
+COHERE_ALONE = 4  # windows of the full Cohere batch also decoded alone
 
 
 def peak_gib(fn):
@@ -2021,13 +2026,16 @@ def reduced_depth_parity(device) -> str:
 
 
 def time_request(smi: str, label: str, fn, audio_s: float, runs: int = 5,
-                 host_ops: bool = True, per: tuple[int, str] | None = None) -> str:
+                 per: tuple[int, str] | None = None) -> str:
     """Host wall per request (median after one warm-up; with `per` = (n,
     unit) also per unit), RTFx, launches, device busy and idle share
-    (profiler) and peak memory."""
-    ms = host_ms(fn, runs=runs)
-    launches, busy = profile_calls(fn, 1, host_ops)
-    _, peak = peak_gib(fn)
+    (profiler) and peak memory over the timed runs."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = host_ms(fn, runs=runs, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches, busy = profile_calls(fn, 1)
     unit = f" ({ms / per[0]:.4f} ms per {per[1]}, {per[0]} of them)" if per else ""
     line = (f"timing [{smi}] {label}: median {ms:.3f} ms per request (host wall){unit}, RTFx "
             f"{audio_s / (ms / 1e3):.1f}, {launches:.0f} kernel launches and {busy:.3f} ms device "
@@ -2103,9 +2111,9 @@ def phase_families_full_width(attn, i8, device, smi: str) -> dict:
                  runs=3)
     time_request(smi, f"Cohere, {two_s:.2f} s long-form (2 windows, 5 s overlap, one batch)",
                  lambda: cohere.transcribe(a_two), two_s, runs=3)
-    # a long input that fills one batch of WINDOW_BATCH windows, each window
-    # then decoded alone: bf16 GEMMs at batch 16 and at batch 1 need not round
-    # alike, so the agreement is recorded, not required
+    # a long input that fills one batch of WINDOW_BATCH windows, the first
+    # COHERE_ALONE of them then decoded alone: bf16 GEMMs at batch 16 and at
+    # batch 1 need not round alike, so the agreement is recorded, not required
     hop = cap - 80_000
     n_win = WINDOW_BATCH
     a_full = speechlike(rs, 1.0 + (cap + (n_win - 1) * hop) / 16_000)[: cap + (n_win - 1) * hop]
@@ -2117,7 +2125,7 @@ def phase_families_full_width(attn, i8, device, smi: str) -> dict:
           f"{len(cohere.window_decodes)} batches")
     batch = cohere.window_decodes[0]
     same, first_diff = 0, []
-    for w in range(n_win):
+    for w in range(COHERE_ALONE):
         seg = torch.from_numpy(a_full[w * hop : w * hop + cap]).to(device)[None]
         alone = cohere.run_window(seg, torch.tensor([cap], dtype=torch.int32, device=device))
         n = int(alone.counts[0])
@@ -2126,9 +2134,10 @@ def phase_families_full_width(attn, i8, device, smi: str) -> dict:
         else:
             diff = (alone.tokens[0] != batch.tokens[w]).nonzero()
             first_diff.append((w, int(diff[0]) if diff.numel() else n))
-    print(f"phase 15 Cohere, {n_win} windows in one batch against each window alone (bf16): "
-          f"{same}/{n_win} windows with equal tokens and counts; (window, first differing "
-          f"position) {first_diff}; batch steps {batch.steps}, host syncs {batch.host_syncs}")
+    print(f"phase 15 Cohere, {n_win} windows in one batch, the first {COHERE_ALONE} against "
+          f"each window alone (bf16): {same}/{COHERE_ALONE} windows with equal tokens and "
+          f"counts; (window, first differing position) {first_diff}; batch steps "
+          f"{batch.steps}, host syncs {batch.host_syncs}")
     time_request(smi, f"Cohere, {full_s:.2f} s long-form ({n_win} windows, one batch)",
                  lambda: cohere.transcribe(a_full), full_s, runs=1)
     del cohere
@@ -2346,8 +2355,7 @@ def time_diarizer(smi: str, label: str, fn, audio_s: float, runs: int = 2) -> st
     """`time_request` (device-only profile), then the PipelineTimings stages
     of its last call."""
     last = {}
-    line = time_request(smi, label, lambda: last.update(r=fn()), audio_s, runs=runs,
-                        host_ops=False)
+    line = time_request(smi, label, lambda: last.update(r=fn()), audio_s, runs=runs)
     t = last["r"].timings
     print(f"timing [{smi}] {label}: PipelineTimings segmentation "
           f"{t.segmentation_seconds * 1e3:.1f} ms, embedding {t.embedding_seconds * 1e3:.1f} ms, "
@@ -2446,7 +2454,7 @@ def phase_diarizers(attn, i8, device, smi: str) -> tuple[dict, float, list[str]]
     key = f"sortformer v2 process_chunk x{SF_LIVE_CHUNKS} (live)"
     paths[key] = c
     ms = host_ms(live, runs=2)
-    launches, busy = profile_calls(live, 1, host_ops=False)
+    launches, busy = profile_calls(live, 1)
     line = (f"timing [{smi}] {key}: {ms / SF_LIVE_CHUNKS:.3f} ms per 480 ms chunk (host wall, "
             f"median of 2 runs of {SF_LIVE_CHUNKS}), {launches / SF_LIVE_CHUNKS:.0f} kernel "
             f"launches and {busy / SF_LIVE_CHUNKS:.3f} ms device busy per chunk, idle share "
@@ -2675,7 +2683,7 @@ def time_synthesis(smi: str, label: str, fn, runs: int = 2) -> str:
     """`time_request` with the audio's length, then the KokoroStageTimings
     of the last call."""
     result = fn()
-    line = time_request(smi, label, fn, result.duration, runs=runs, host_ops=False)
+    line = time_request(smi, label, fn, result.duration, runs=runs)
     t = result.timings
     print(f"timing [{smi}] {label}: KokoroStageTimings g2p {t.g2p_seconds * 1e3:.3f} ms, text "
           f"{t.text_seconds * 1e3:.3f} ms, audio {t.audio_seconds * 1e3:.3f} ms, post "
@@ -2784,7 +2792,7 @@ def phase_tts_lseend_itn(attn, i8, device, smi: str) -> tuple[dict, list[str]]:
         steps = int(LSEEND_SECONDS * 10) // diar.step_frames
         line = time_request(smi, f"{label}: {len(result.segments)} segments, {steps} steps",
                             lambda: diar.process(audio), LSEEND_SECONDS, runs=3,
-                            host_ops=False, per=(steps, "step"))
+                            per=(steps, "step"))
         lines.append(line)
     diar = LSEENDDiarizer(step_ms=500, checkpoint_dir=empty, device=device)
 
@@ -2798,7 +2806,7 @@ def phase_tts_lseend_itn(attn, i8, device, smi: str) -> tuple[dict, list[str]]:
     segs = path(label, session)
     check(len(segs) == int(LSEEND_SECONDS) + 1, f"{label}: {len(segs)} results")
     lines.append(time_request(smi, f"{label} (+ finish_stream)", session, LSEEND_SECONDS,
-                              runs=2, host_ops=False, per=(len(segs) - 1, "1 s push")))
+                              runs=2, per=(len(segs) - 1, "1 s push")))
     del diar
     torch.cuda.empty_cache()
     lap("LS-EEND")
@@ -3257,7 +3265,7 @@ def phase_tts_rest(attn, i8, device, smi: str) -> tuple[dict, list[str]]:
         lines.append(time_request(smi, f"{label} ({fpt:.2f} frames per token, "
                                        f"{result.duration:.2f} s of audio)",
                                   lambda: mgr._synthesize_phonemes(phonemes, ref),
-                                  result.duration, runs=3, host_ops=False))
+                                  result.duration, runs=3))
     del mgr
     torch.cuda.empty_cache()
     lap("StyleTTS2")
@@ -3271,19 +3279,19 @@ def phase_tts_rest(attn, i8, device, smi: str) -> tuple[dict, list[str]]:
     check(result.frames == mgr.cfg.max_frames and np.isfinite(result.samples).all(),
           f"{label}: {result.frames} frames")
     lines.append(time_request(smi, label, lambda: mgr.synthesize(text), result.duration, runs=3,
-                              host_ops=False, per=(result.frames, "frame")))
+                              per=(result.frames, "frame")))
     label = (f"PocketTTS stream, blocks of {mgr.STREAM_BLOCK_FRAMES} frames, "
              f"{mgr.cfg.max_frames} frames")
     blocks = path(label, lambda: list(mgr.stream(text)))
     check(len(blocks) == mgr.cfg.max_frames, f"{label}: {len(blocks)} frames")
     n_blocks = -(-mgr.cfg.max_frames // mgr.STREAM_BLOCK_FRAMES)
     lines.append(time_request(smi, label, lambda: list(mgr.stream(text)), result.duration,
-                              runs=2, host_ops=False, per=(n_blocks, "block")))
+                              runs=2, per=(n_blocks, "block")))
     voice = speechlike(np.random.RandomState(19), 5.0)
     label = "PocketTTS clone_voice (Mimi encoder, 10 s window)"
     path(label, lambda: mgr.clone_voice(voice, "cloned"))
     lines.append(time_request(smi, label, lambda: mgr.clone_voice(voice, "cloned"), 10.0,
-                              runs=3, host_ops=False))
+                              runs=3))
     del mgr
     torch.cuda.empty_cache()
     lap("PocketTTS")
@@ -3293,8 +3301,7 @@ def phase_tts_rest(attn, i8, device, smi: str) -> tuple[dict, list[str]]:
     result = path(label, lambda: mgr.synthesize(SUPERTONIC_TEXT))
     check(np.isfinite(result.samples).all() and result.samples.size > 0, f"{label}: samples")
     lines.append(time_request(smi, f"{label} ({result.duration:.2f} s of audio)",
-                              lambda: mgr.synthesize(SUPERTONIC_TEXT), result.duration, runs=3,
-                              host_ops=False))
+                              lambda: mgr.synthesize(SUPERTONIC_TEXT), result.duration, runs=3))
     del mgr
     torch.cuda.empty_cache()
     lap("Supertonic-3")
@@ -3325,7 +3332,7 @@ HARMONIC_ROUNDTRIPS = {"trained_tts_roundtrip_wer_pct": ("KokoroManager", "eval_
                        "trained_styletts2_roundtrip_wer_pct": ("StyleTTS2Manager",
                                                                "eval_styletts2_fixture")}
 CLI_SPEECH_SECONDS = 30.0
-CLI_STREAM_CHUNKS = 64
+CLI_STREAM_CHUNKS = 16
 CLI_DIAR_SECONDS = 60.0
 
 
@@ -3363,24 +3370,6 @@ def gate_families(failed: list[str]) -> list[str | None]:
     """The family each failed gate belongs to (None: not a failing family's)."""
     return [next((fam for fam, name in GUARDRAIL_GATE_NAMES.items()
                   if gate.startswith(name + " ")), None) for gate in failed]
-
-
-def device_activity(prof) -> tuple[int, float]:
-    """(kernel launches, device busy ms) of a CUDA profile, read from its raw
-    events: the profiler's event tree (`prof.events()`) takes minutes to
-    build at the 10^5-10^6 launches of a CLI command."""
-    spans, kernels = [], 0
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type().name != "CUDA":
-            continue
-        kernels += not e.name().startswith(("Memcpy", "Memset"))
-        spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
-    total, end = 0, float("-inf")
-    for start, stop in sorted(spans):
-        if stop > end:
-            total += stop - max(start, end)
-            end = stop
-    return kernels, total / 1e6
 
 
 def cli_path(attn, i8, smi: str, paths: dict, label: str, argv: list[str], want_rc: int = 0,
@@ -3518,7 +3507,7 @@ def phase_cli(attn, i8, device, smi: str) -> tuple[dict, list[str]]:
     v3 --allow-random-init` on 30 s: the text of `AsrManager.transcribe`
     on the card, 24 attention launches per encoder call. `benchmark
     --workload all --batch 128` (four metric lines; 17 launches per
-    Sortformer encoder call), `streaming-latency-benchmark --chunks 64 --iters 1`,
+    Sortformer encoder call), `streaming-latency-benchmark --chunks 16 --iters 1`,
     `diarize --mode sortformer --rttm`, `tts-asr-verify --trained-fixture`
     and `normalize`. Every command counted and timed, and profiled but the
     streaming probe. -> (launches per path, timing lines)."""
@@ -3630,9 +3619,11 @@ def phase_cli(attn, i8, device, smi: str) -> tuple[dict, list[str]]:
         torch.cuda.empty_cache()
         lap("benchmark")
 
-        # not profiled: its ~2 x 10^6 launches (the RNN-T loop at its token
-        # cap) take the profiler ~100 s to read; the command times itself
-        out, calls, line = cli_path(attn, i8, smi, paths, "CLI streaming-latency-benchmark, 64",
+        # not profiled: the RNN-T loop at its token cap makes ~10^4
+        # launches per chunk step, whose tracing would swamp the wall; the
+        # command times itself
+        label = f"CLI streaming-latency-benchmark, {CLI_STREAM_CHUNKS}"
+        out, calls, line = cli_path(attn, i8, smi, paths, label,
                                     ["streaming-latency-benchmark", "--chunks",
                                      str(CLI_STREAM_CHUNKS), "--iters", "1"], profiled=False)
         probe = guardrail_json(out)
