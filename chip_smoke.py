@@ -212,10 +212,28 @@ line is not printed:
      15 s x 2 ragged, relative L2 <= 1e-4 over valid frames; a test-width
      Supertonic-3 ONNX release with no npz converted in place by
      `Supertonic3Manager`, which must hold the release's weights, and
-     synthesized once.
+     synthesized once;
+ 21. training and the mesh (`parallel/`, `train/transducer_loss.py`): the
+     TDT and the CTC train steps at Parakeet v3 width (24 x 1024, Dh 128,
+     vocab 8192; f32, `attention_backend="xla"`, a seeded generator) on B=2
+     seeded speech-like 15 s windows (one 12 s long) with 48 and 40
+     labels: every parameter gets a gradient (all-zero leaves listed), the
+     loss is finite and falls over 5 steps on the batch, neither kernel
+     launches; step ms (median of 3) split into forward, loss and backward
+     + AdamW, launches, busy, idle and peak (card name and power limit on
+     the line); both steps at v3 width with 2 layers on the card against
+     the CPU, TF32 off (loss 1e-5, gradient 1e-4 relative L2, each leaf
+     1e-3); `make_mesh(1)` (a one-rank NCCL group): JAX's dryrun's three
+     programs at its config, `jit_sharded_infer` at v3 width equal to the
+     unsharded decode (24 launches), and `AsrManager`, `VadManager` and
+     `SortformerDiarizer` under `set_mesh` equal to themselves without it,
+     with the same kernel launches; then phases 4-20 against a reference
+     whole run (`scripts/chip_smoke_reference_run.json`): every kernel's
+     launches and the plain attention's calls per path equal, each timed
+     path's peak memory and profiled launches within their stated bounds.
 
 The line before the last is the kernel record (JSON, with each kernel's
-launches on its main path and on each path of phases 11-20, the plain
+launches on its main path and on each path of phases 11-21, the plain
 attention's calls on the paths that take it, bound and times); the last
 line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -279,6 +297,21 @@ class SmokeFailure(RuntimeError):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SmokeFailure(what)
+
+
+TIMED: dict[str, dict] = {}  # this run's timing lines: label -> peak GiB, launches
+
+
+def report(line: str, **print_kw) -> None:
+    """Print a timing line and keep its peak memory and profiled launches
+    under its label (the text between the card and the first ": "), for
+    phase 21's comparison with the reference run."""
+    print(line, **print_kw)
+    label = line.split("] ", 1)[1].split(": ", 1)[0]
+    peak = re.search(r"peak(?: mem)? ([0-9.]+) GiB", line)
+    launches = re.search(r"(\d+) kernel launches", line)
+    TIMED.setdefault(label, {"peak_gib": float(peak.group(1)) if peak else None,
+                             "launches": int(launches.group(1)) if launches else None})
 
 
 def speechlike(rs: np.random.RandomState, seconds: float) -> np.ndarray:
@@ -713,18 +746,18 @@ def time_attention(attn, device, smi: str, batch: int = 128) -> dict:
         # all rows are full length here
         nbytes, ops = attention_cost(B, H, T, Dh, 2 if strided else 4)
         bound_ms, bound_by = bound(nbytes, ops, BF16_FLOPS)
-        print(f"timing [{smi}] relpos_attention B={B} H={H} T={T} Dh={Dh} bf16, {form}: "
-              f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
-              f"{bound_ms / min(k1, k2):.0%} of it")
+        report(f"timing [{smi}] relpos_attention B={B} H={H} T={T} Dh={Dh} bf16, {form}: "
+               f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound "
+               f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
+               f"{bound_ms / min(k1, k2):.0%} of it")
         record = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound_ms,
                   "bound_by": bound_by, "library_ms": None}
     q, kk, vv = (x.contiguous() for x in (qu, k, v))
     sdpa = [cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, kk, vv))
             for _ in range(2)]
-    print(f"timing [{smi}] context, not the same function: SDPA on q/k/v [{B}, {H}, {T}, "
-          f"{Dh}] bf16 without the position term {sdpa[0]:.4f}/{sdpa[1]:.4f} ms; no PyTorch "
-          f"call computes the XL-shifted scores")
+    report(f"timing [{smi}] context, not the same function: SDPA on q/k/v [{B}, {H}, {T}, "
+           f"{Dh}] bf16 without the position term {sdpa[0]:.4f}/{sdpa[1]:.4f} ms; no PyTorch "
+           f"call computes the XL-shifted scores")
     return record
 
 
@@ -755,17 +788,17 @@ def time_int8(i8, device, smi: str) -> dict:
         bound_ms, bound_by = bound(nbytes, ops, INT8_OPS)
         per_call += launches * min(k1, k2)
         bound_per_call += launches * bound_ms
-        print(f"timing [{smi}] int8_matmul_fused {name} M={M} K={K} N={N} bf16"
-              f"{' +bias' if with_bias else ''}, {launches} launches per encoder call: kernel "
-              f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}) | context, not the same function: bf16 F.linear "
-              f"{linear_ms:.4f} ms, torch._int_mm {int_mm}")
+        report(f"timing [{smi}] int8_matmul_fused {name} M={M} K={K} N={N} bf16"
+               f"{' +bias' if with_bias else ''}, {launches} launches per encoder call: kernel "
+               f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound {bound_ms:.4f} ms "
+               f"({bound_by}) | context, not the same function: bf16 F.linear "
+               f"{linear_ms:.4f} ms, torch._int_mm {int_mm}")
         if not out:  # the fc1 shape goes into the kernel record
             out = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound_ms,
                    "bound_by": bound_by, "library_ms": None}
         del x, wq, ws, bias, xq, w_bf16
-    print(f"timing [{smi}] int8_matmul_fused per B=128 encoder call (sum of launches x best "
-          f"time above): {per_call:.3f} ms against a summed bound of {bound_per_call:.3f} ms")
+    report(f"timing [{smi}] int8_matmul_fused per B=128 encoder call (sum of launches x best "
+           f"time above): {per_call:.3f} ms against a summed bound of {bound_per_call:.3f} ms")
     return out
 
 
@@ -778,11 +811,11 @@ def time_encoders(attn, device, smi: str, bf16_models, int8_models, batch: int =
     bf16_plain = lambda: bf16_models.encoder(mel, mel_len, attention=attn.relpos_attention_plain)
     int8 = lambda: int8_models.encoder(mel, mel_len)
     e = [cuda_ms(f, iters=3) for f in (bf16_plain, bf16, bf16, bf16_plain)]
-    print(f"timing [{smi}] v3 encoder B={batch} 15 s: bf16 with kernel {e[1]:.1f}/{e[2]:.1f} "
-          f"ms, bf16 with plain attention {e[0]:.1f}/{e[3]:.1f} ms")
+    report(f"timing [{smi}] v3 encoder B={batch} 15 s: bf16 with kernel {e[1]:.1f}/{e[2]:.1f} "
+           f"ms, bf16 with plain attention {e[0]:.1f}/{e[3]:.1f} ms")
     q = [cuda_ms(f, iters=3) for f in (bf16, int8, int8, bf16)]
-    print(f"timing [{smi}] v3 encoder B={batch} 15 s: int8 {q[1]:.1f}/{q[2]:.1f} ms, "
-          f"bf16 {q[0]:.1f}/{q[3]:.1f} ms")
+    report(f"timing [{smi}] v3 encoder B={batch} 15 s: int8 {q[1]:.1f}/{q[2]:.1f} ms, "
+           f"bf16 {q[0]:.1f}/{q[3]:.1f} ms")
 
 
 def time_pipeline(device, smi: str, models, manager, batch: int = 128) -> float:
@@ -805,10 +838,11 @@ def time_pipeline(device, smi: str, models, manager, batch: int = 128) -> float:
         best = min(best, time.perf_counter() - t0)
     tokens = int(result.counts.sum().item())
     rtfx = seconds / best
-    print(f"timing [{smi}] {models.spec.name} {models.spec.conformer.quantization} "
-          f"build_pipeline({batch}) 15 s windows: best of 5 {best * 1e3:.1f} ms -> RTFx "
-          f"{rtfx:.1f} | {tokens / seconds:.2f} tok/s of audio | peak mem "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    line = (f"timing [{smi}] {models.spec.name} {models.spec.conformer.quantization} "
+            f"build_pipeline({batch}) 15 s windows: best of 5 {best * 1e3:.1f} ms -> RTFx "
+            f"{rtfx:.1f} | {tokens / seconds:.2f} tok/s of audio | peak mem "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    report(line)
     return rtfx
 
 
@@ -1171,13 +1205,13 @@ def time_stream_latency(smi: str, name: str, mgr, chunks: int = 20) -> None:
         emitted.append(len(done[0].token_ids))
     launches, busy = profile_calls(lambda: mgr.process(next(pieces), state), 5)
     wall = float(np.median(walls))
-    print(f"timing [{smi}] streaming latency {name} {mgr.chunk_ms} ms chunks, 1 stream, f32: "
-          f"median wall {wall:.3f} ms per chunk (CUDA-event span {np.median(spans):.3f} ms), "
-          f"{wall / mgr.chunk_ms:.4f} of the chunk's duration | {launches:.1f} kernel launches "
-          f"and {busy:.3f} ms device busy per chunk step (profiler), idle share "
-          f"{max(0.0, 1 - busy / wall):.3f} | tokens per timed chunk: mean "
-          f"{np.mean(emitted):.2f}, max {max(emitted)} "
-          f"({sum(emitted) / (chunks * mgr.chunk_ms / 1000):.2f} tok/s of audio)")
+    report(f"timing [{smi}] streaming latency {name} {mgr.chunk_ms} ms chunks, 1 stream, f32: "
+           f"median wall {wall:.3f} ms per chunk (CUDA-event span {np.median(spans):.3f} ms), "
+           f"{wall / mgr.chunk_ms:.4f} of the chunk's duration | {launches:.1f} kernel launches "
+           f"and {busy:.3f} ms device busy per chunk step (profiler), idle share "
+           f"{max(0.0, 1 - busy / wall):.3f} | tokens per timed chunk: mean "
+           f"{np.mean(emitted):.2f}, max {max(emitted)} "
+           f"({sum(emitted) / (chunks * mgr.chunk_ms / 1000):.2f} tok/s of audio)")
 
 
 def time_multistream(device, smi: str, mgr, label: str, counts=(1, 16, 64, 128),
@@ -1224,16 +1258,17 @@ def time_multistream(device, smi: str, mgr, label: str, counts=(1, 16, 64, 128),
             mel = mgr._mel_chunk(win, torch.zeros(n, device=device))
             pid = torch.from_numpy(session.prompt_ids).to(device)
             enc_ms = cuda_ms(lambda: mgr._apply_encoder(mel, session.caches, pid), iters=5)
-            print(f"timing [{smi}] multi-stream {label} {mgr.chunk_ms} ms chunks, N={n} x "
-                  f"{seconds:.0f} s: {n_ticks} ticks, {per_tick:.2f} ms per tick "
-                  f"({'real time' if per_tick < mgr.chunk_ms else 'NOT real time'} against "
-                  f"{mgr.chunk_ms} ms of audio per tick), {n * seconds / wall:.1f} audio s per "
-                  f"wall s, peak mem {peak:.2f} GiB, {n_steps / n_ticks:.1f} decode loop steps "
-                  f"per tick | one steady tick: {launches:.0f} kernel launches, device busy "
-                  f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / per_tick):.3f} | encoder "
-                  f"chunk step alone at N={n}: {enc_ms:.2f} ms (CUDA events) | "
-                  f"{tokens / (n * seconds):.2f} tok/s of audio, at most {burst} tokens in one "
-                  f"stream's chunk (the decode loop runs to the busiest row)")
+            line = (f"timing [{smi}] multi-stream {label} {mgr.chunk_ms} ms chunks, N={n} x "
+                    f"{seconds:.0f} s: {n_ticks} ticks, {per_tick:.2f} ms per tick "
+                    f"({'real time' if per_tick < mgr.chunk_ms else 'NOT real time'} against "
+                    f"{mgr.chunk_ms} ms of audio per tick), {n * seconds / wall:.1f} audio s per "
+                    f"wall s, peak mem {peak:.2f} GiB, {n_steps / n_ticks:.1f} decode loop steps "
+                    f"per tick | one steady tick: {launches:.0f} kernel launches, device busy "
+                    f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / per_tick):.3f} | encoder "
+                    f"chunk step alone at N={n}: {enc_ms:.2f} ms (CUDA events) | "
+                    f"{tokens / (n * seconds):.2f} tok/s of audio, at most {burst} tokens in one "
+                    f"stream's chunk (the decode loop runs to the busiest row)")
+            report(line)
     finally:
         mgr._serve_tick = serve_tick
         hook.remove()
@@ -1267,9 +1302,9 @@ def streaming_full_width(attn, i8, device, smi: str) -> None:
     tps = {f"EOU 120M {ms} ms": calibrate_stream_blank_bias(m, rs, 16) for ms, m in eou.items()}
     tps["Nemotron-en 560 ms"] = calibrate_stream_blank_bias(nem[560], rs, 16)
     tps["Nemotron-en 2240 ms"] = calibrate_stream_blank_bias(nem[2240], rs, 9)
-    print(f"timing [{smi}] streaming managers at full width, seeded random weights, joint blank "
-          f"bias calibrated on 8 streams of speech-like audio to tok/s: "
-          + ", ".join(f"{k} {v:.2f}" for k, v in tps.items()))
+    report(f"timing [{smi}] streaming managers at full width, seeded random weights, joint blank "
+           f"bias calibrated on 8 streams of speech-like audio to tok/s: "
+           + ", ".join(f"{k} {v:.2f}" for k, v in tps.items()))
     for mgr in eou.values():
         time_stream_latency(smi, "EOU 120M", mgr)
     for mgr in nem.values():
@@ -1361,9 +1396,10 @@ def phase_repairs(attn, i8, device, build_s: str) -> None:
         g = torch.Generator().manual_seed(1)
         mel = torch.randn(2, cfg.n_mels, 160, generator=g)
         mel_len = torch.tensor([160, 97], dtype=torch.int32)
-        (got, got_len), counts = counted(attn, i8, lambda: card_enc(mel.to(device),
-                                                                    mel_len.to(device)))
-        want, _ = cpu_enc(mel, mel_len)
+        with torch.no_grad():  # serving: the encoders' parameters require grad
+            (got, got_len), counts = counted(attn, i8, lambda: card_enc(mel.to(device),
+                                                                        mel_len.to(device)))
+            want, _ = cpu_enc(mel, mel_len)
         rel = rel_l2(got.cpu(), want)
         # one block's attention alone, on the same input, valid rows
         T = got.shape[1]
@@ -1618,13 +1654,13 @@ def phase_spotter_full_width(attn, i8, device, smi: str) -> tuple[dict, dict]:
           f"{cfg.n_heads} heads, Dh {cfg.head_dim}, vocab 1024 + blank, bf16, seeded random "
           f"weights), 40 s = {n_chunks} chunks: canvas {canvas.shape}, launches {counts} | "
           f"kernel canvas vs plain-attention canvas max abs {err:.3e} (tol {PARITY_TOL})")
-    print(f"timing [{smi}] keyword spotter 15 s chunk (mel, encoder, head, log-softmax, one "
-          f"copy back): median {chunk_ms:.3f} ms (host wall), {per_chunk:.0f} kernel launches "
-          f"and {busy:.3f} ms device busy per chunk (profiler), idle share "
-          f"{max(0.0, 1 - busy / chunk_ms):.3f} | spotting DP, 20 terms of 2-6 tokens over the "
-          f"40 s canvas ({canvas.shape[0]} frames, host): median {dp_ms:.3f} ms | "
-          f"ctc_greedy_decode on the card, [1, {canvas.shape[0]}, 1025]: median "
-          f"{greedy_ms:.3f} ms (host wall incl. the copy of the counts)")
+    report(f"timing [{smi}] keyword spotter 15 s chunk (mel, encoder, head, log-softmax, one "
+           f"copy back): median {chunk_ms:.3f} ms (host wall), {per_chunk:.0f} kernel launches "
+           f"and {busy:.3f} ms device busy per chunk (profiler), idle share "
+           f"{max(0.0, 1 - busy / chunk_ms):.3f} | spotting DP, 20 terms of 2-6 tokens over the "
+           f"40 s canvas ({canvas.shape[0]} frames, host): median {dp_ms:.3f} ms | "
+           f"ctc_greedy_decode on the card, [1, {canvas.shape[0]}, 1025]: median "
+           f"{greedy_ms:.3f} ms (host wall incl. the copy of the counts)")
     del spotter
     torch.cuda.empty_cache()
     return counts, times
@@ -1656,11 +1692,11 @@ def time_facade(smi: str, label: str, sliding, cfg, audio) -> None:
     check(session.error_count == 0, f"{label}: {session.error_count} windows failed")
     ms = float(np.median(walls))
     new_ms = chunk_samples / 16
-    print(f"timing [{smi}] {label}: {len(walls)} timed windows of {cfg.window_samples / 16_000:.2f} "
-          f"s ({new_ms:.0f} ms new audio each): median {ms:.3f} ms per window, {ms / new_ms:.4f} "
-          f"of the new audio | {launches:.0f} kernel launches and {busy:.3f} ms device busy per "
-          f"window (profiler), idle share {max(0.0, 1 - busy / ms):.3f} | "
-          f"{len(final.confirmed_text.split())} words confirmed")
+    report(f"timing [{smi}] {label}: {len(walls)} timed windows of {cfg.window_samples / 16_000:.2f} "
+           f"s ({new_ms:.0f} ms new audio each): median {ms:.3f} ms per window, {ms / new_ms:.4f} "
+           f"of the new audio | {launches:.0f} kernel launches and {busy:.3f} ms device busy per "
+           f"window (profiler), idle share {max(0.0, 1 - busy / ms):.3f} | "
+           f"{len(final.confirmed_text.split())} words confirmed")
 
 
 def phase_facades_full_width(attn, i8, device, smi: str) -> dict:
@@ -1715,10 +1751,10 @@ def phase_facades_full_width(attn, i8, device, smi: str) -> dict:
             check(counts["relpos_attention"] == models.spec.conformer.n_layers, f"arbitrate {counts}")
             out["arbitrate none"] = counts
             arb_ms = host_ms(lambda: arbitrate(manager, audio), runs=5)
-            print(f"timing [{smi}] arbitrate on v3 bf16 (3 probes of 15 s in one "
-                  f"build_pipeline(4) call): median {arb_ms:.3f} ms, picks "
-                  f"{decision.strategy!r} (confidences "
-                  + ", ".join(f"{k} {c:.4f}" for k, c in decision.confidences.items()) + ")")
+            report(f"timing [{smi}] arbitrate on v3 bf16 (3 probes of 15 s in one "
+                   f"build_pipeline(4) call): median {arb_ms:.3f} ms, picks "
+                   f"{decision.strategy!r} (confidences "
+                   + ", ".join(f"{k} {c:.4f}" for k, c in decision.confidences.items()) + ")")
         del models
         torch.cuda.empty_cache()
     print(f"phase 12 Parakeet facades at full width (v3 24 x 1024, seeded random weights, 30 s "
@@ -2041,7 +2077,7 @@ def time_request(smi: str, label: str, fn, audio_s: float, runs: int = 5,
             f"{audio_s / (ms / 1e3):.1f}, {launches:.0f} kernel launches and {busy:.3f} ms device "
             f"busy per request (profiler), idle share {max(0.0, 1 - busy / ms):.3f}, peak "
             f"{peak:.2f} GiB")
-    print(line, flush=True)
+    report(line, flush=True)
     return line
 
 
@@ -2162,9 +2198,9 @@ def phase_families_full_width(attn, i8, device, smi: str) -> dict:
     h0 = torch.zeros(VAD_ROWS, 128, device=device)
     last = torch.full((VAD_ROWS,), frames - 1, dtype=torch.int32, device=device)
     prog_ms = cuda_ms(lambda: prog(audio_t, h0, h0, last), iters=5)
-    print(f"timing [{smi}] Silero batch: the frame program alone {prog_ms:.3f} ms (CUDA events), "
-          f"{prog_ms / frames:.4f} ms per frame step of the recurrence ({VAD_ROWS} rows x 32 ms "
-          f"each); the rest of the {ms:.3f} ms call is host packing and results")
+    report(f"timing [{smi}] Silero batch: the frame program alone {prog_ms:.3f} ms (CUDA events), "
+           f"{prog_ms / frames:.4f} ms per frame step of the recurrence ({VAD_ROWS} rows x 32 ms "
+           f"each); the rest of the {ms:.3f} ms call is host packing and results")
     stream = speechlike(rs, 100 * 0.256)
 
     def hundred_chunks():
@@ -2177,8 +2213,8 @@ def phase_families_full_width(attn, i8, device, smi: str) -> dict:
     line = time_request(smi, "Silero v5 streaming, 100 chunks of 256 ms (8 frames each, one "
                         "call per chunk)", hundred_chunks, 25.6, runs=3)
     ms = float(re.search(r"median ([0-9.]+) ms", line).group(1))
-    print(f"timing [{smi}] Silero streaming: {ms / 100:.3f} ms per 256 ms chunk, "
-          f"{ms / 800:.4f} ms per frame")
+    report(f"timing [{smi}] Silero streaming: {ms / 100:.3f} ms per 256 ms chunk, "
+           f"{ms / 800:.4f} ms per frame")
     # more (batch, bucket) shapes than the manager keeps: the device memory
     # its CUDA graphs hold, after each new shape
     torch.cuda.synchronize()
@@ -2250,7 +2286,7 @@ def sortformer_attention(attn, device, smi: str) -> tuple[float, list[str]]:
                     f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB, peak "
                     f"{peak / 1e12:.0f} TFLOP/s), {bound_ms / min(k1, k2):.1%} of it; "
                     f"max abs err {err:.2e} (tol {tol})")
-            print(line, flush=True)
+            report(line, flush=True)
             lines.append(line)
     return worst, lines
 
@@ -2357,11 +2393,11 @@ def time_diarizer(smi: str, label: str, fn, audio_s: float, runs: int = 2) -> st
     last = {}
     line = time_request(smi, label, lambda: last.update(r=fn()), audio_s, runs=runs)
     t = last["r"].timings
-    print(f"timing [{smi}] {label}: PipelineTimings segmentation "
-          f"{t.segmentation_seconds * 1e3:.1f} ms, embedding {t.embedding_seconds * 1e3:.1f} ms, "
-          f"clustering {t.clustering_seconds * 1e3:.1f} ms, post "
-          f"{t.post_processing_seconds * 1e3:.1f} ms, total {t.total_seconds * 1e3:.1f} ms",
-          flush=True)
+    report(f"timing [{smi}] {label}: PipelineTimings segmentation "
+           f"{t.segmentation_seconds * 1e3:.1f} ms, embedding {t.embedding_seconds * 1e3:.1f} ms, "
+           f"clustering {t.clustering_seconds * 1e3:.1f} ms, post "
+           f"{t.post_processing_seconds * 1e3:.1f} ms, total {t.total_seconds * 1e3:.1f} ms",
+           flush=True)
     return line
 
 
@@ -2459,7 +2495,7 @@ def phase_diarizers(attn, i8, device, smi: str) -> tuple[dict, float, list[str]]
             f"median of 2 runs of {SF_LIVE_CHUNKS}), {launches / SF_LIVE_CHUNKS:.0f} kernel "
             f"launches and {busy / SF_LIVE_CHUNKS:.3f} ms device busy per chunk, idle share "
             f"{max(0.0, 1 - busy / ms):.3f}, launches {c}")
-    print(line, flush=True)
+    report(line, flush=True)
     lines.append(line)
     del sf
     torch.cuda.empty_cache()
@@ -2685,9 +2721,9 @@ def time_synthesis(smi: str, label: str, fn, runs: int = 2) -> str:
     result = fn()
     line = time_request(smi, label, fn, result.duration, runs=runs)
     t = result.timings
-    print(f"timing [{smi}] {label}: KokoroStageTimings g2p {t.g2p_seconds * 1e3:.3f} ms, text "
-          f"{t.text_seconds * 1e3:.3f} ms, audio {t.audio_seconds * 1e3:.3f} ms, post "
-          f"{t.post_seconds * 1e3:.3f} ms; {result.duration:.3f} s of audio", flush=True)
+    report(f"timing [{smi}] {label}: KokoroStageTimings g2p {t.g2p_seconds * 1e3:.3f} ms, text "
+           f"{t.text_seconds * 1e3:.3f} ms, audio {t.audio_seconds * 1e3:.3f} ms, post "
+           f"{t.post_seconds * 1e3:.3f} ms; {result.duration:.3f} s of audio", flush=True)
     return line
 
 
@@ -3426,7 +3462,7 @@ def cli_path(attn, i8, smi: str, paths: dict, label: str, argv: list[str], want_
             f"included), {device}, peak {peak:.2f} GiB; attention {c['relpos_attention']}"
             f" launches over {len(calls)} encoder calls (layers, Dh: "
             f"{sorted(set(calls))}), plain {c['relpos_attention_plain calls']}")
-    print(line, flush=True)
+    report(line, flush=True)
     return lines, calls, line
 
 
@@ -3988,7 +4024,7 @@ def phase_convert(attn, i8, device, smi: str) -> dict:
             paths[f"converted v3 {label}, 3 x 15 s (phase 20)"] = launches
             del models, manager
             torch.cuda.empty_cache()
-        print(timing, flush=True)
+        report(timing, flush=True)
 
         # -- the converted f32 encoder against the NeMo oracle on the raw weights
         models = AsrModels.load("v3", checkpoint_dir=tmp / "v3", device=device,
@@ -4046,6 +4082,333 @@ def phase_convert(attn, i8, device, smi: str) -> dict:
     return paths
 
 
+# --------------------------------------- phase 21: training and the mesh
+
+TRAIN_SEED = 21
+TRAIN_LABELS = (48, 40)  # label counts of the two rows (mixed: the masks are exercised)
+TRAIN_AUDIO_S = (15.0, 12.0)  # two 15 s windows, the second 12 s of audio
+TRAIN_STEPS = 5  # steps on one fixed batch, whose loss must fall
+TRAIN_CARD_LOSS_TOL = 1e-5  # card vs CPU, f32 with TF32 off: loss, relative
+TRAIN_CARD_GRAD_TOL = 1e-4  # the whole gradient, relative L2
+TRAIN_CARD_LEAF_TOL = 1e-3  # each leaf, relative to max(its norm, 1e-3 of the largest)
+# phases 4-20 against this script's whole run at an earlier commit.
+# A serving path that kept an autograd graph would hold every activation of
+# its encoders (the v3 pipeline's 8.0 GiB several times over) and launch
+# the same kernels. Two whole runs of this script on one card read the same
+# peaks and profiled launches up to 1.1% apart (LS-EEND's session of
+# ragged pushes); the bounds leave room for another card's allocator and
+# host timing.
+PEAK_RISE = (1.25, 0.25)  # allowed: x factor + GiB
+LAUNCH_RISE = (1.05, 50)  # allowed: x factor + launches
+REFERENCE_RUN = REPO / "scripts" / "chip_smoke_reference_run.json"
+
+
+def train_batch(device, rs, vocab: int) -> dict:
+    """B = 2 seeded speech-like windows of 15 s (1,501 mel frames, T' 188)
+    through v3's mel frontend, the second 12 s long; seeded label ids below
+    `vocab`."""
+    from fluidaudio_tpu_torch.ops.mel import MelConfig, MelFrontend
+
+    width = int(TRAIN_AUDIO_S[0] * 16_000)
+    audio = np.zeros((2, width), np.float32)
+    lengths = np.array([int(s * 16_000) for s in TRAIN_AUDIO_S], np.int32)
+    for b, n in enumerate(lengths):
+        audio[b, :n] = speechlike(rs, n / 16_000)
+    mel, mel_len = MelFrontend(MelConfig(normalize="per_feature"), device=device)(
+        torch.from_numpy(audio).to(device), torch.from_numpy(lengths).to(device))
+    labels = np.zeros((2, max(TRAIN_LABELS)), np.int32)
+    for b, n in enumerate(TRAIN_LABELS):
+        labels[b, :n] = rs.randint(0, vocab, n)
+    return {"mel": mel, "mel_lengths": mel_len, "labels": torch.from_numpy(labels).to(device),
+            "label_lengths": torch.tensor(TRAIN_LABELS, dtype=torch.int32, device=device)}
+
+
+def train_state(kind: str, ccfg, pcfg, generator, device):
+    """(state, objective, step, modules) of the CTC or TDT step at `ccfg` /
+    `pcfg`."""
+    from fluidaudio_tpu_torch.parallel import train as pt
+
+    if kind == "ctc":
+        state, encoder, tx = pt.create_train_state(generator, ccfg, pcfg.vocab_size, 1501,
+                                                   device=device)
+        return (state, pt.CtcObjective(encoder, pcfg.vocab_size),
+                pt.make_train_step(encoder, tx, pcfg.vocab_size), (encoder,))
+    state, modules, tx = pt.create_tdt_train_state(generator, ccfg, pcfg, 1501, device=device)
+    durations = (0, 1, 2, 3, 4)
+    return (state, pt.TdtObjective(modules, pcfg, durations),
+            pt.make_tdt_train_step(modules, pcfg, tx, durations), modules)
+
+
+def train_full_width(attn, i8, kind: str, device, smi: str, batch: dict) -> dict:
+    """One train step kind at Parakeet v3 width (f32, attention_backend
+    "xla"): every parameter gets a gradient (leaves all zero listed), the
+    loss is finite, falls over TRAIN_STEPS steps on the batch and no kernel
+    of ours launches; timed (median of 3 after the warm-up steps), split
+    into forward, loss and backward + optimizer; launches, busy, idle and
+    peak of one step."""
+    from dataclasses import replace
+
+    from fluidaudio_tpu_torch.models.conformer import PARAKEET_V3
+    from fluidaudio_tpu_torch.models.predictor import PARAKEET_V3_PRED
+    from fluidaudio_tpu_torch.parallel.train import loss_and_grads
+
+    ccfg = replace(PARAKEET_V3, dtype="float32", attention_backend="xla")
+    gen = torch.Generator(device=device).manual_seed(TRAIN_SEED)
+    state, objective, step, _ = train_state(kind, ccfg, PARAKEET_V3_PRED, gen, device)
+    n_params = sum(v.numel() for v in state.params.values())
+    (loss, grads), c = counted(attn, i8, lambda: loss_and_grads(objective, state.params, batch))
+    check(bool(torch.isfinite(loss)), f"{kind} v3: loss {loss}")
+    zero = [k for k, g in grads.items() if not bool(g.any())]
+    del grads
+    losses = []
+
+    def one_step():
+        nonlocal state
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+
+    _, c_steps = counted(attn, i8, lambda: [one_step() for _ in range(TRAIN_STEPS)])
+    for cc in (c, c_steps):
+        check(cc["relpos_attention"] == 0 and cc["int8_matmul_fused"] == 0,
+              f"{kind} v3 train path launched a kernel of ours: {cc}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{kind} v3: losses over {TRAIN_STEPS} steps on one batch {losses}")
+    params = state.params
+    fwd = host_ms(lambda: objective.outputs(params, batch), runs=3, warmup=0)
+    fwd_loss = host_ms(lambda: objective(params, batch), runs=3, warmup=0)
+    step_ms = host_ms(one_step, runs=3, warmup=0)
+    _, peak = peak_gib(one_step)
+    launches, busy = profile_calls(one_step, 1)
+    report(f"timing [{smi}] {kind.upper()} train step, Parakeet v3 width ({ccfg.n_layers} x "
+           f"{ccfg.d_model}, {ccfg.n_heads} heads, vocab {PARAKEET_V3_PRED.vocab_size}, f32, "
+           f"xla attention; {n_params / 1e9:.3f} B params), B=2 x 15 s (T' 188), labels "
+           f"{TRAIN_LABELS}: median {step_ms:.1f} ms per step (host wall; forward {fwd:.1f}, "
+           f"loss {fwd_loss - fwd:.1f}, backward + AdamW {step_ms - fwd_loss:.1f} ms), "
+           f"{launches:.0f} kernel launches and {busy:.3f} ms device busy per step (profiler), "
+           f"idle share {max(0.0, 1 - busy / step_ms):.3f}, peak {peak:.2f} GiB; losses "
+           f"{[round(v, 3) for v in losses[:TRAIN_STEPS]]}; leaves with an all-zero gradient: "
+           f"{zero or 'none'}; kernel launches {c_steps}", flush=True)
+    del state, objective, step, params
+    torch.cuda.empty_cache()
+    return c_steps
+
+
+def train_card_vs_cpu(kind: str, device, batch: dict) -> str:
+    """The step at v3 width with 2 layers, the same parameters and batch on
+    the card and on the CPU, TF32 off: the loss and every gradient leaf."""
+    from dataclasses import replace
+
+    from fluidaudio_tpu_torch.models.conformer import PARAKEET_V3
+    from fluidaudio_tpu_torch.models.predictor import PARAKEET_V3_PRED
+    from fluidaudio_tpu_torch.models.zoo import disable_tf32
+    from fluidaudio_tpu_torch.parallel.train import loss_and_grads
+
+    disable_tf32()
+    ccfg = replace(PARAKEET_V3, dtype="float32", attention_backend="xla", n_layers=2)
+    out = []
+    for dev in (torch.device("cpu"), device):
+        gen = torch.Generator(device="cpu").manual_seed(TRAIN_SEED)
+        state, objective, _, modules = train_state(kind, ccfg, PARAKEET_V3_PRED, gen, "cpu")
+        for m in modules:
+            m.to(dev)
+        params = {k: v.detach().to(dev).requires_grad_(True) for k, v in state.params.items()}
+        loss, grads = loss_and_grads(objective, params, {k: v.to(dev) for k, v in batch.items()})
+        out.append((float(loss), {k: g.cpu() for k, g in grads.items()}))
+        del state, objective, params, grads
+    (cpu_loss, cpu_g), (card_loss, card_g) = out
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    norms = {k: float(g.norm()) for k, g in cpu_g.items()}
+    floor = 1e-3 * max(norms.values())
+    leaf = {k: float((card_g[k] - g).norm()) / max(norms[k], floor) for k, g in cpu_g.items()}
+    whole = (sum(float((card_g[k] - g).norm()) ** 2 for k, g in cpu_g.items()) ** 0.5
+             / sum(n ** 2 for n in norms.values()) ** 0.5)
+    worst = max(leaf, key=leaf.get)
+    check(loss_rel <= TRAIN_CARD_LOSS_TOL and whole <= TRAIN_CARD_GRAD_TOL
+          and leaf[worst] <= TRAIN_CARD_LEAF_TOL,
+          f"{kind} card vs CPU: loss {loss_rel:.2e}, gradient {whole:.2e}, "
+          f"worst leaf {worst} {leaf[worst]:.2e}")
+    return (f"{kind.upper()} loss {card_loss:.4f} vs {cpu_loss:.4f} (rel {loss_rel:.2e}), "
+            f"gradient rel L2 {whole:.2e} over {len(leaf)} leaves, worst leaf {worst} "
+            f"{leaf[worst]:.2e}")
+
+
+def mesh_dryrun(mesh, device) -> str:
+    """JAX's dryrun's three programs at its config on the one-card mesh."""
+    from fluidaudio_tpu_torch.models.conformer import ConformerConfig
+    from fluidaudio_tpu_torch.models.predictor import PredictorConfig
+    from fluidaudio_tpu_torch.parallel import train as pt
+    from fluidaudio_tpu_torch.parallel.infer import jit_sharded_infer
+    from fluidaudio_tpu_torch.parallel.mesh import shard_batch, shard_params
+
+    cfg = ConformerConfig(n_mels=16, d_model=64, n_layers=2, n_heads=4,
+                          subsampling_channels=16, dtype="float32")
+    vocab, frames, batch = 32, 65, 2
+    rng = np.random.RandomState(0)
+
+    def dryrun_batch(labels=True):
+        b = {"mel": rng.randn(batch, cfg.n_mels, frames).astype(np.float32),
+             "mel_lengths": np.full((batch,), frames, np.int32)}
+        if labels:
+            b["labels"] = rng.randint(0, vocab, (batch, 8)).astype(np.int32)
+            b["label_lengths"] = np.full((batch,), 8, np.int32)
+        return shard_batch(mesh, b)
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    state, encoder, tx = pt.create_train_state(gen, cfg, vocab, frames, device=device)
+    state = state._replace(params=shard_params(mesh, state.params))
+    _, metrics = pt.jit_sharded_train_step(mesh, encoder, tx, vocab, state)(state,
+                                                                          dryrun_batch())
+    pcfg = PredictorConfig(vocab_size=vocab, pred_hidden=32, n_layers=1,
+                           enc_hidden=cfg.d_model, joint_hidden=32, n_durations=5)
+    tstate, modules, ttx = pt.create_tdt_train_state(gen, cfg, pcfg, frames, device=device)
+    tstate = tstate._replace(params=shard_params(mesh, tstate.params))
+    tstate, tmetrics = pt.jit_sharded_tdt_train_step(mesh, modules, pcfg, ttx, (0, 1, 2, 3, 4),
+                                                     tstate)(tstate, dryrun_batch())
+    ib = dryrun_batch(labels=False)
+    tokens, counts, enc_len = jit_sharded_infer(mesh, modules, pcfg, tstate.params)(
+        tstate.params, ib["mel"], ib["mel_lengths"])
+    loss, tdt_loss = float(metrics["loss"]), float(tmetrics["loss"])
+    check(np.isfinite(loss) and np.isfinite(tdt_loss) and tokens.shape[0] == batch
+          and bool((counts >= 0).all()), f"dryrun on the mesh: {loss}, {tdt_loss}, {counts}")
+    return (f"dryrun config on the 1 x 1 mesh: ctc_loss={loss:.4f} tdt_loss={tdt_loss:.4f} "
+            f"infer_tokens={int(counts.sum())} enc_len={int(enc_len[0])}")
+
+
+def mesh_serving(attn, i8, mesh, device, missing: Path) -> tuple[dict, list[str]]:
+    """`jit_sharded_infer` at v3 width against the unsharded decode, and
+    `AsrManager`, `VadManager` and `SortformerDiarizer` under `set_mesh` of
+    the one-card mesh against the same managers without it: the same
+    results and the same kernel launches."""
+    from fluidaudio_tpu_torch.asr.config import ASRConfig
+    from fluidaudio_tpu_torch.asr.manager import AsrManager
+    from fluidaudio_tpu_torch.diarizer.sortformer import SortformerDiarizer
+    from fluidaudio_tpu_torch.models.zoo import AsrModels
+    from fluidaudio_tpu_torch.ops.tdt_decode import (
+        TdtDecodeConfig,
+        make_initial_state,
+        tdt_greedy_decode,
+    )
+    from fluidaudio_tpu_torch.parallel.infer import jit_sharded_infer
+    from fluidaudio_tpu_torch.train import tiny_corpus as tc
+    from fluidaudio_tpu_torch.vad import VadManager
+
+    paths, lines = {}, []
+    rs = np.random.RandomState(TRAIN_SEED)
+    models = AsrModels.load("v3", device=device, rng_seed=TRAIN_SEED)
+    parts = (models.encoder, models.predictor, models.joint)
+    params = {f"{n}.{k}": v for n, part in zip(("encoder", "predictor", "joint"), parts)
+              for k, v in part.named_parameters()}
+    audio = torch.from_numpy(np.stack([speechlike(rs, 15.0) for _ in range(2)])).to(device)
+    mel, mel_len = models.mel(audio, torch.tensor([240_000, 160_000], dtype=torch.int32,
+                                                  device=device))
+    infer = jit_sharded_infer(mesh, parts, models.spec.predictor, params)
+    (tokens, counts, _), c = counted(attn, i8, lambda: infer(params, mel, mel_len))
+    with torch.no_grad():
+        enc, enc_len = models.encoder(mel, mel_len)
+        dcfg = TdtDecodeConfig(blank_id=models.blank_id, max_tokens=64)
+        ref = tdt_greedy_decode(dcfg, models.predictor, models.joint, enc, enc_len,
+                                make_initial_state(dcfg, models.spec.predictor.n_layers,
+                                                   models.spec.predictor.pred_hidden, 2,
+                                                   device=device))
+    check(c["relpos_attention"] == models.spec.conformer.n_layers
+          and torch.equal(tokens, ref.tokens) and torch.equal(counts, ref.counts),
+          f"jit_sharded_infer v3 on the mesh: {c}, counts {counts.tolist()} vs "
+          f"{ref.counts.tolist()}")
+    paths["jit_sharded_infer v3 bf16, 2 x 15 s, 1 x 1 mesh (phase 21)"] = c
+    lines.append(f"jit_sharded_infer v3: tokens equal to tdt_greedy_decode ({counts.tolist()} "
+                 f"tokens), {c['relpos_attention']} attention launches")
+
+    def twice(label, make, run, same):
+        """`run(manager)` without and then with the mesh: same result, same counts."""
+        mgr = make()
+        want, c0 = counted(attn, i8, lambda: run(mgr))
+        mgr.set_mesh(mesh)
+        got, c1 = counted(attn, i8, lambda: run(mgr))
+        mgr.set_mesh(None)
+        check(same(got, want) and c1 == c0, f"{label} under set_mesh: counts {c1} vs {c0}")
+        paths[f"{label}, 1 x 1 mesh (phase 21)"] = c1
+        paths[f"{label}, no mesh (phase 21)"] = c0
+        lines.append(f"{label}: equal with and without the mesh, launches {c1}")
+
+    speech = speechlike(rs, 40.0)
+    twice("AsrManager v3 bf16, 40 s", lambda: AsrManager(models, ASRConfig(parallel_chunk_batch=4)),
+          lambda m: m.transcribe(speech),
+          lambda a, b: a.text == b.text and [t.token_id for t in a.token_timings]
+          == [t.token_id for t in b.token_timings])
+    clips = [speechlike(rs, 20.0) for _ in range(5)]
+    twice("VadManager Silero v5, 5 x 20 s", lambda: VadManager(checkpoint_dir=missing,
+                                                               device=device),
+          lambda m: [[r.probability for r in b] for b in m.process_batch(clips)],
+          lambda a, b: a == b)
+    mix, _, _ = tc.diarizer_mixture(rs, 60.0)
+    twice("SortformerDiarizer v2 process_offline, 60 s",
+          lambda: SortformerDiarizer(checkpoint_dir=missing, device=device),
+          lambda m: [vars(s) for s in m.process_offline(mix).segments], lambda a, b: a == b)
+    check(paths["SortformerDiarizer v2 process_offline, 60 s, 1 x 1 mesh (phase 21)"][
+        "relpos_attention"] == SF_ENCODER_LAYERS, "Sortformer under the mesh: one encoder call")
+    return paths, lines
+
+
+def against_reference(paths: dict) -> str:
+    """Phases 4-20 against this script's whole run at an earlier commit
+    (`REFERENCE_RUN`): each kernel's launches and the plain attention's
+    calls per path equal, each timed path's peak memory and profiled
+    launches within PEAK_RISE / LAUNCH_RISE."""
+    ref = json.loads(REFERENCE_RUN.read_text())
+    rows, worse = [], []
+    for name, by_path in ref["counts_by_path"].items():
+        for label, n in by_path.items():
+            got = paths[label][name]
+            if got != n:
+                worse.append(f"{name} on {label}: {got}, reference {n}")
+    for label, want in ref["timed"].items():
+        got = TIMED.get(label)
+        check(got is not None and (got["launches"] is None) == (want["launches"] is None),
+              f"timed path {label!r} not run as in the reference")
+        if want["peak_gib"] is not None:
+            rows.append(f"{label}: {got['peak_gib']:.2f} ({want['peak_gib']:.2f})")
+            if got["peak_gib"] > want["peak_gib"] * PEAK_RISE[0] + PEAK_RISE[1]:
+                worse.append(f"{label}: peak {got['peak_gib']} GiB, reference {want['peak_gib']}")
+        if want["launches"] is not None and (
+                got["launches"] > want["launches"] * LAUNCH_RISE[0] + LAUNCH_RISE[1]):
+            worse.append(f"{label}: {got['launches']} launches, reference {want['launches']}")
+    check(not worse, f"phases 4-20 against the reference run: {worse}")
+    return (f"phases 4-20 against the reference run ({ref['origin']}): every kernel "
+            f"count per path equal, every profiled path's launches within {LAUNCH_RISE}; peak "
+            f"GiB this run (reference): " + "; ".join(rows))
+
+
+def phase_train_and_mesh(attn, i8, device, smi: str, paths_4_20: dict) -> dict:
+    """Phase 21: the train steps at v3 width, card against CPU at reduced
+    depth, the one-card mesh, and phases 4-20 against the reference run."""
+    import torch.distributed as dist
+
+    from fluidaudio_tpu_torch.models.predictor import PARAKEET_V3_PRED
+    from fluidaudio_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    batch = train_batch(device, np.random.RandomState(TRAIN_SEED), PARAKEET_V3_PRED.vocab_size)
+    paths = {f"{kind.upper()} train step, v3 width, {TRAIN_STEPS} steps (phase 21)":
+             train_full_width(attn, i8, kind, device, smi, batch) for kind in ("tdt", "ctc")}
+    parity = [train_card_vs_cpu(kind, device, batch) for kind in ("tdt", "ctc")]
+    print(f"phase 21 v3 width, 2 layers, f32, card vs CPU (loss {TRAIN_CARD_LOSS_TOL}, "
+          f"gradient {TRAIN_CARD_GRAD_TOL}, leaf {TRAIN_CARD_LEAF_TOL}): " + " | ".join(parity),
+          flush=True)
+    owned = not dist.is_initialized()
+    mesh = make_mesh(1, device=device)
+    try:
+        dry = mesh_dryrun(mesh, device)
+        serve_paths, lines = mesh_serving(attn, i8, mesh, device, REPO / "_no_checkpoint")
+    finally:
+        if owned:
+            dist.destroy_process_group()
+    paths.update(serve_paths)
+    print(f"phase 21 make_mesh(1) (NCCL, one rank): {dry} | " + " | ".join(lines), flush=True)
+    print(f"phase 21 {against_reference(paths_4_20)}", flush=True)
+    print(f"phase 21 {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU", file=sys.stderr)
@@ -4099,6 +4462,8 @@ def main() -> int:
     elapsed("phase 19")
     paths.update(phase_convert(attn, i8, device, smi))
     elapsed("phase 20")
+    paths.update(phase_train_and_mesh(attn, i8, device, smi, dict(paths)))
+    elapsed("phase 21")
     print(json.dumps({"kernels": [{
         "name": "relpos_attention",
         "route": "cuda",

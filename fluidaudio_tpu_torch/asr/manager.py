@@ -45,6 +45,7 @@ from fluidaudio_tpu_torch.ops.tdt_decode import (
     make_initial_state,
     tdt_greedy_decode,
 )
+from fluidaudio_tpu_torch.parallel.mesh import axis_size, gather_rows, local_rows
 from fluidaudio_tpu_torch.utils.audio_source import (
     ArrayAudioSource,
     AudioSampleSource,
@@ -79,14 +80,29 @@ class AsrManager:
         # per-session progress stream for long transcriptions
         self.progress = ProgressEmitter()
         self._language_masks: dict[str, torch.Tensor] = {}
+        self._mesh = None  # `set_mesh`
 
     def set_mesh(self, mesh) -> None:
-        """`None` (no mesh) is single-device serving, as in JAX.
-        Sharding the long-form window batches over devices waits for the
-        torch.distributed slice (ROADMAP Queue A item 7e)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded ASR serving is not ported yet (ROADMAP Queue A item 7e)")
+        """Enable (or with None disable) mesh-sharded long-form decoding.
+
+        Every rank is given the same request (SPMD). Each window group's rows
+        split over the mesh's "data" axis: a rank runs its rows through the
+        same single-device pipeline (`build_pipeline` at the group's batch
+        over the axis: kernels and all), the decode outputs are all-gathered
+        over "data", and every rank merges the whole group, as the
+        single-device path does. Parameters are replicated: each rank holds
+        the whole model. `parallel_chunk_batch` must be a multiple of the
+        axis."""
+        if mesh is None:
+            self._mesh = None
+            return
+        n_data = axis_size(mesh, "data")
+        if self.config.parallel_chunk_batch % n_data:
+            raise ValueError(
+                f"parallel_chunk_batch={self.config.parallel_chunk_batch} "
+                f"must be a multiple of the mesh data axis ({n_data})"
+            )
+        self._mesh = mesh
 
     # ------------------------------------------------------------- pipeline
 
@@ -271,7 +287,9 @@ class AsrManager:
         )
         B = self.config.parallel_chunk_batch
         W = layout.window_samples
-        fn = self.build_pipeline(B, language)
+        mesh = self._mesh
+        rows = local_rows(mesh, B) if mesh is not None else slice(0, B)
+        fn = self.build_pipeline(rows.stop - rows.start, language)
 
         merged: list[TokenWindow] = []
         n_groups = -(-len(windows) // B)
@@ -285,10 +303,13 @@ class AsrManager:
                 audio[r, : w.read_count] = _copy_raw(source, w.read_start, w.read_count)
                 lengths[r] = w.read_count
                 fin_row[r] = w.is_last and finalize  # last window runs the flush
-            result, _ = fn(torch.from_numpy(audio), torch.from_numpy(lengths),
-                           torch.from_numpy(fin_row))
-            rows = _extract_tokens(result, [w.frame_offset for w in group])
-            for window_tokens in rows:
+            result, _ = fn(torch.from_numpy(audio[rows]), torch.from_numpy(lengths[rows]),
+                           torch.from_numpy(fin_row[rows]))
+            if mesh is not None:
+                result = result._replace(**{
+                    f: gather_rows(mesh, getattr(result, f))
+                    for f in ("tokens", "token_times", "counts", "confidences", "durations")})
+            for window_tokens in _extract_tokens(result, [w.frame_offset for w in group]):
                 merged = cp.merge_chunks(
                     merged, window_tokens, self._splice_safe, self._case_canon
                 )

@@ -134,7 +134,11 @@ class MultiStreamEouManager(_StreamingModels):
         """Zero row i of exactly the fields JAX resets: the conformer caches
         (batch on axis 0 of pre_cache and channel_len, axis 1 of channel and
         time) and the decoder state (h/c [L, B, H], last_token to blank,
-        time_jump)."""
+        time_jump). Under a mesh, only the rank that holds row i has it."""
+        rows = self.session.rows
+        if not rows.start <= i < rows.stop:
+            return
+        i -= rows.start
         c, d = self.session.caches, self.session.dec_state
         c.pre_cache[i] = 0.0
         c.channel[:, i] = 0.0

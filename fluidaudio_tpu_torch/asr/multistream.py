@@ -14,9 +14,10 @@ batch axis on the device, and one serving tick runs one batched chunk step
   stays per stream and reuses the single-stream bookkeeping
   (`_host_advance`) unchanged.
 
-`set_mesh(None)` keeps single-device serving, as in JAX; a mesh raises
-NotImplementedError until the torch.distributed slice (ROADMAP Queue A
-item 7e).
+`set_mesh(mesh)` shards the stream batch over the mesh's "data" axis: a
+session made after it holds this rank's rows of the device state, every
+rank is given the same audio, runs the same chunk step on its rows and
+all-gathers the outputs, so every rank advances every stream.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from fluidaudio_tpu_torch.ops.tdt_decode import (
     make_initial_state,
     tdt_greedy_decode,
 )
+from fluidaudio_tpu_torch.parallel.mesh import axis_size, gather_rows, local_rows
 
 __all__ = [
     "MultiStreamSession",
@@ -109,6 +111,10 @@ class MultiStreamSession:
     caches: StreamingCaches  # batched [.., B, ..]
     dec_state: TdtDecodeState  # batched
     prompt_ids: np.ndarray | None = None  # [B] (multilingual Nemotron)
+    # the rows of the batch whose device state this rank holds, and the
+    # mesh they split over (None: one device, all rows)
+    rows: slice | None = None
+    mesh: object | None = None
 
     @property
     def n(self) -> int:
@@ -126,19 +132,19 @@ class MultiStreamMixin:
     stay behavior-identical by construction).
     """
 
+    _mesh = None  # `set_mesh`
+
     @property
     def _need(self) -> int:
         return self.chunk_samples + LOOKAHEAD_SAMPLES
 
     def set_mesh(self, mesh) -> None:
-        """`None` (no mesh) serves the streams on one device, as in JAX
-        (whose reset of its jitted chunk program has no counterpart here:
-        the chunk step is eager). Mesh-sharded multi-stream serving waits
-        for the torch.distributed slice (ROADMAP Queue A item 7e)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "set_mesh: multi-GPU serving over torch.distributed is not ported yet "
-                "(ROADMAP Queue A item 7e); serve the streams on one device")
+        """Enable (None: disable) mesh-sharded multi-stream serving for the
+        sessions made after it: the stream batch splits over the mesh's
+        "data" axis (`n_streams` a multiple of it), each rank steps its rows
+        with the same chunk program and the outputs are all-gathered.
+        Parameters are replicated: each rank holds the whole model."""
+        self._mesh = mesh
 
     # ------------------------------------------------------------ session
 
@@ -146,12 +152,23 @@ class MultiStreamMixin:
                          prompt_ids: np.ndarray | None = None,
                          forced_prefix: list[int | None] | None = None,
                          ) -> MultiStreamSession:
-        caches = init_caches(self.enc_cfg, n_streams, self.device)
+        mesh = self._mesh
+        rows = slice(0, n_streams)
+        if mesh is not None:
+            n_data = axis_size(mesh, "data")
+            if n_streams % n_data:
+                raise ValueError(
+                    f"n_streams={n_streams} must be a multiple of the mesh "
+                    f"data axis ({n_data})"
+                )
+            rows = local_rows(mesh, n_streams)
+        n_rows = rows.stop - rows.start
+        caches = init_caches(self.enc_cfg, n_rows, self.device)
         dec = make_initial_state(self.dcfg, self.pred_cfg.n_layers, self.pred_cfg.pred_hidden,
-                                 n_streams, device=self.device)
+                                 n_rows, device=self.device)
         if forced_prefix is not None:
             lt = dec.last_token.cpu().numpy()
-            for i, tok in enumerate(forced_prefix):
+            for i, tok in enumerate(forced_prefix[rows]):
                 if tok is not None:
                     lt[i] = int(tok)
             dec = dec._replace(last_token=torch.from_numpy(lt).to(self.device))
@@ -160,6 +177,7 @@ class MultiStreamMixin:
             caches=caches, dec_state=dec,
             prompt_ids=(np.asarray(prompt_ids, np.int32) if prompt_ids is not None
                         else np.zeros(n_streams, np.int32)),
+            rows=rows, mesh=mesh,
         )
 
     # -------------------------------------------------------- device step
@@ -236,12 +254,15 @@ class MultiStreamMixin:
             if active[i]:
                 windows[i] = s.pending[:need]
                 last[i] = s.last_sample
-        dev = self.device
+        dev, rows = self.device, session.rows
         tokens, times, counts, eou, caches, dec = self._multi_chunk_step(
-            torch.from_numpy(windows).to(dev), torch.from_numpy(last).to(dev),
-            session.caches, session.dec_state, torch.from_numpy(active).to(dev),
-            torch.from_numpy(session.prompt_ids).to(dev))
+            torch.from_numpy(windows[rows]).to(dev), torch.from_numpy(last[rows]).to(dev),
+            session.caches, session.dec_state, torch.from_numpy(active[rows]).to(dev),
+            torch.from_numpy(session.prompt_ids[rows]).to(dev))
         session.caches, session.dec_state = caches, dec
+        if session.mesh is not None:
+            tokens, times, counts, eou = (gather_rows(session.mesh, x)
+                                          for x in (tokens, times, counts, eou))
         tokens_h, times_h, counts_h, eou_h = chunk_outputs_to_host(tokens, times, counts, eou)
         for i, s in enumerate(session.streams):
             if not active[i]:

@@ -56,6 +56,7 @@ from fluidaudio_tpu_torch.models.sortformer import (
 )
 from fluidaudio_tpu_torch.models.zoo import disable_tf32, load_or_init
 from fluidaudio_tpu_torch.ops.mel import MelConfig, MelFrontend
+from fluidaudio_tpu_torch.parallel.mesh import axis_size, gather_rows, local_rows
 from fluidaudio_tpu_torch.registry import DownloadUtils, Repo
 from fluidaudio_tpu_torch.utils.device import resolve_device
 from fluidaudio_tpu_torch.utils.logging import get_logger
@@ -93,13 +94,17 @@ class SortformerDiarizer:
         self._session_state = self.make_state()
         self._session_frames = 0
         self._slot_names: dict[int, str] = {}
+        self._mesh = None  # `set_mesh`
 
     def set_mesh(self, mesh) -> None:
-        """`None` keeps single-device serving; sharding offline windows over
-        devices waits for the torch.distributed slice (ROADMAP Queue A item 7)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded Sortformer is not ported yet (ROADMAP Queue A item 7)")
+        """Enable (or with None disable) mesh-sharded offline diarization:
+        `process_offline`'s window batch (its bucket rounded up to a multiple
+        of the mesh's "data" axis) splits over "data"; each rank runs mel,
+        encoder and transformer on its windows (`offline_windows`, the same
+        program) and the predictions are all-gathered, so every rank
+        stitches the same segments. Every rank is given the same recording;
+        parameters are replicated. Mirrors `AsrManager.set_mesh`."""
+        self._mesh = mesh
 
     @torch.no_grad()
     def stream_program(self, chunk_audio: torch.Tensor, state: SortformerState,
@@ -288,10 +293,19 @@ class SortformerDiarizer:
 
         W = len(starts)
         bucket = 1 << (W - 1).bit_length()
+        rows = slice(0, bucket)
+        if self._mesh is not None:
+            n_data = axis_size(self._mesh, "data")
+            bucket = -(-bucket // n_data) * n_data
+            rows = local_rows(self._mesh, bucket)
         flat = np.zeros((bucket + 1) * step, samples.dtype)
         flat[: min(samples.size, flat.size)] = samples[: flat.size]
-        preds_all = self.offline_windows(torch.from_numpy(flat).to(self.device), bucket, step,
-                                         window_samples).cpu().numpy()
+        # windows rows.start .. rows.stop - 1 read flat[start * step : (stop + 1) * step]
+        mine = torch.from_numpy(flat[rows.start * step:(rows.stop + 1) * step]).to(self.device)
+        preds = self.offline_windows(mine, rows.stop - rows.start, step, window_samples)
+        if self._mesh is not None:
+            preds = gather_rows(self._mesh, preds)
+        preds_all = preds.cpu().numpy()
 
         windows = []
         for i, (start, size) in enumerate(zip(starts, sizes)):

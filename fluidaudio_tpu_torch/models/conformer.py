@@ -4,12 +4,17 @@ Port of `fluidaudio_tpu/models/conformer.py` for the full-context models:
   - 8x depthwise-separable striding subsampling (3 conv stages, stride 2 each)
   - N conformer blocks: 0.5*FFN -> rel-pos MHSA -> conv module -> 0.5*FFN -> LN
   - Transformer-XL relative positional multi-head attention through
-    `ops.attention.relpos_attention` (the CUDA kernel on a GPU) when the
-    kernel takes the head width (Dh 16, 32, ..., 128), else through
-    `relpos_attention_plain` on the tensors' own device: a branch on the
-    shape, taken before any launch, as the JAX encoder branches between
-    its Pallas and einsum paths
+    `ops.attention.relpos_attention` (the CUDA kernel on a GPU) or
+    `relpos_attention_plain` on the tensors' own device, chosen by
+    `ConformerEncoder.attention_route` before any launch, as the JAX encoder
+    branches between its Pallas and einsum paths
   - conv module: LN -> pointwise(2d, GLU) -> depthwise(k) -> BN -> SiLU -> pointwise
+
+The forward is differentiable: serving callers run it under `torch.no_grad`
+(the managers and pipelines) or on frozen parameters (`AsrModels.load`), and
+`parallel/train.py` trains it. Batch norm is JAX's folded inference form
+(`bn_scale`, `bn_bias`) and there is no dropout, so `module.train()` changes
+nothing: a train step differentiates the function that serving runs.
 
 Module and parameter names mirror the flax tree (`block{i}.mhsa.q.weight` for
 `params/block{i}/mhsa/q/kernel`), so `utils.weights.load_npz` maps the JAX
@@ -59,9 +64,9 @@ class ConformerConfig:
     att_context_left: int = -1
     att_context_right: int = -1
     dtype: str = "bfloat16"  # compute dtype
-    # JAX's choice of attention path; the port takes "auto" only (the
-    # rel-pos attention kernel where it takes the head width), and
-    # `ConformerEncoder` refuses any other value
+    # JAX's choice of attention path: "auto" (the rel-pos attention kernel
+    # where it takes the head width; see `ConformerEncoder.attention_route`)
+    # or "xla" (JAX's einsum path: `relpos_attention_plain` at every Dh)
     attention_backend: str = "auto"
     # "none" | "int8": dynamic w8a8 on the large matmuls through
     # ops/quant.Int8Linear (weights quantised once, at load)
@@ -258,21 +263,54 @@ class ConformerEncoder(nn.Module):
             raise NotImplementedError(
                 "limited attention context in the offline encoder is not ported; the "
                 "streaming encoder is models/conformer_streaming.StreamingConformerEncoder")
-        if cfg.attention_backend != "auto":
-            raise NotImplementedError(
-                f"attention_backend={cfg.attention_backend!r} is not ported; the encoder "
-                "takes \"auto\" (the rel-pos attention kernel where it takes the head width)")
+        if cfg.attention_backend not in ("auto", "xla"):
+            raise ValueError(
+                f"attention_backend must be 'auto' or 'xla', got {cfg.attention_backend!r}")
         self.cfg = cfg
         self.subsampling = DwStridingSubsampling(cfg, device)
         for i in range(cfg.n_layers):
             self.add_module(f"block{i}", ConformerBlock(cfg, device))
         self.to(cfg.compute_dtype)
 
-    @torch.no_grad()
+    def attention_route(self, mel: torch.Tensor) -> AttentionFn | None:
+        """The attention path for a forward on `mel`, decided before any
+        launch, as JAX's encoder decides on its config (it is a branch, never
+        a fallback on failure):
+
+        - `"xla"`: `relpos_attention_plain` at every head width (JAX's
+          einsum path, differentiable).
+        - `"auto"` with no gradient needed (grad mode off, or neither `mel`
+          nor a parameter requires grad): None, i.e. `RelPosMHSA` takes the
+          kernel's wrapper where the kernel takes Dh, the plain version
+          elsewhere (serving).
+        - `"auto"` when a gradient is needed: the plain version where JAX's
+          encoder takes its einsum path (Dh != 128, or the CPU). At Dh 128 on
+          the card JAX takes Pallas, which `jax.grad` cannot differentiate,
+          and the port's kernel has no backward either: ValueError naming
+          `attention_backend="xla"`.
+        """
+        cfg = self.cfg
+        if cfg.attention_backend == "xla":
+            return relpos_attention_plain
+        needs_grad = torch.is_grad_enabled() and (
+            mel.requires_grad or any(p.requires_grad for p in self.parameters()))
+        if not needs_grad:
+            return None
+        if cfg.head_dim == 128 and mel.device.type != "cpu":
+            raise ValueError(
+                "attention_backend=\"auto\" takes the rel-pos attention kernel at Dh 128 on "
+                "the card, which autograd cannot differentiate (nor can jax.grad the Pallas "
+                "kernel); train with attention_backend=\"xla\"")
+        return relpos_attention_plain
+
     def forward(self, mel: torch.Tensor, mel_lengths: torch.Tensor,
                 attention: AttentionFn | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        """`attention=None` takes `attention_route(mel)`; a caller may pass
+        the kernel's wrapper or the plain version to compare the two."""
         cfg = self.cfg
+        if attention is None:
+            attention = self.attention_route(mel)
         x = self.subsampling(mel)
         if cfg.xscale:
             x = x * math.sqrt(cfg.d_model)

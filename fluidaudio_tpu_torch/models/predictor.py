@@ -4,6 +4,8 @@ Port of `fluidaudio_tpu/models/predictor.py`. Versions: v2 vocab 1024 with a
 2-layer LSTM 640; v3 vocab 8192 with a 1-layer LSTM 640. The TDT joint emits
 vocab+1 token logits (blank last) then `n_durations` duration logits.
 Parameter names mirror the flax tree (`lstm0.ih.weight`, `enc_proj.weight`).
+The forwards are differentiable (`parallel/train.py` trains them); serving
+runs them under `torch.no_grad` (`ops.tdt_decode.tdt_greedy_decode`).
 """
 
 from __future__ import annotations
@@ -72,7 +74,6 @@ class RnntPredictor(nn.Module):
             self.add_module(f"lstm{layer}", LstmCell(cfg.pred_hidden, cfg.pred_hidden, device))
         self.to(cfg.compute_dtype)
 
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
         """tokens [B] int, h/c [L, B, H] -> (g [B, H], h', c')."""
         # blank/SOS embeds to zeros (padding_idx semantics)
@@ -104,6 +105,5 @@ class RnntJoint(nn.Module):
                              device=device)
         self.to(cfg.compute_dtype)
 
-    @torch.no_grad()
     def forward(self, f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         return self.out(F.relu(self.enc_proj(f) + self.pred_proj(g)))

@@ -197,6 +197,12 @@ class AsrModels:
             encoder = ConformerEncoder(spec.conformer, device=device).eval()
             load_state(encoder, state)
 
+        # serving models: frozen, so no call builds an autograd graph and the
+        # encoder's attention takes the serving route (parallel/train.py
+        # builds trainable modules of its own)
+        for part in (encoder, predictor, joint):
+            part.requires_grad_(False)
+
         vocab_file = ckpt_dir / "vocab.json"
         if vocab_file.exists():
             tokenizer = Tokenizer.from_json(vocab_file)

@@ -1,9 +1,11 @@
-"""Deterministic synthetic ASR corpus of the trained `test-tiny` fixture.
+"""Deterministic synthetic corpora of the trained tiny fixtures.
 
-The ASR slice of `fluidaudio_tpu/train/tiny_corpus.py`, copied as plain numpy
-so that the port (and `chip_smoke.py`) can make the fixture's utterances
-without importing JAX. It must stay bit-identical to the original:
-`tests/test_torch_asr_manager.py` checks that.
+`fluidaudio_tpu/train/tiny_corpus.py` copied as plain numpy, so that the
+port (and `chip_smoke.py`) can make the fixtures' utterances and training
+batches (`asr_batch`, `vad_batch`, `sortformer_batch`, `lseend_batch`)
+without importing JAX. It must stay bit-identical to the original for the
+same `np.random.RandomState` seeds: `tests/test_torch_asr_manager.py` and
+`tests/test_torch_train.py` check that.
 
 The language has 16 words. Word `i` is a 0.30 s pure tone at
 `240 * 1.21**i` Hz with a Hann onset/offset ramp; words are separated by
@@ -18,6 +20,9 @@ modulation, mixed by `diarizer_mixture` into turns with reference segments;
 """
 
 from __future__ import annotations
+
+import json
+from pathlib import Path
 
 import numpy as np
 
@@ -44,6 +49,13 @@ def tiny_vocab() -> dict[int, str]:
     for i in range(N_WORDS, VOCAB_SIZE):
         vocab[i] = f"▁unused{i}"
     return vocab
+
+
+def write_vocab_json(path: str | Path) -> None:
+    Path(path).write_text(
+        json.dumps({str(i): p for i, p in sorted(tiny_vocab().items())},
+                   ensure_ascii=False)
+    )
 
 
 def word_audio(i: int, amp: float = 0.35) -> np.ndarray:
@@ -107,7 +119,49 @@ def transcript_text(word_ids) -> str:
     return " ".join(word_text(int(w)) for w in word_ids)
 
 
+def asr_batch(
+    rs: np.random.RandomState,
+    batch: int,
+    window_samples: int,
+    min_words: int = 2,
+    max_words: int = 33,
+    u_max: int = 36,
+) -> dict[str, np.ndarray]:
+    """One training batch: utterances padded into a fixed window.
+
+    Returns audio [B, W] f32, audio_lengths [B], labels [B, u_max] (padded
+    with 0s), label_lengths [B]."""
+    audio = np.zeros((batch, window_samples), np.float32)
+    lengths = np.zeros((batch,), np.int32)
+    labels = np.zeros((batch, u_max), np.int32)
+    label_lengths = np.zeros((batch,), np.int32)
+    for b in range(batch):
+        n = int(rs.randint(min_words, max_words + 1))
+        ids = rs.randint(0, N_WORDS, size=n)
+        utt = make_utterance(ids, rs)
+        if utt.size > window_samples:  # safety: trim trailing silence/words
+            # drop words until it fits
+            while utt.size > window_samples and n > 1:
+                n -= 1
+                ids = ids[:n]
+                utt = make_utterance(ids, np.random.RandomState(rs.randint(1 << 30)))
+            utt = utt[:window_samples]
+        audio[b, : utt.size] = utt
+        lengths[b] = utt.size
+        labels[b, :n] = ids
+        label_lengths[b] = n
+    return {
+        "audio": audio,
+        "audio_lengths": lengths,
+        "labels": labels,
+        "label_lengths": label_lengths,
+    }
+
+
 # --------------------------------------------------------------------- VAD
+
+VAD_FRAME = 512  # 32 ms model frames
+VAD_CONTEXT = 64
 
 
 def speechish(seconds: float, rs: np.random.RandomState) -> np.ndarray:
@@ -118,6 +172,58 @@ def speechish(seconds: float, rs: np.random.RandomState) -> np.ndarray:
         0.3 + 0.7 * (np.sin(2 * np.pi * 0.31 * t) > 0)
     )
     return (rs.randn(t.size) * 0.1 * (0.05 + env)).astype(np.float32)
+
+
+def vad_example(
+    rs: np.random.RandomState, n_frames: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """(audio [CONTEXT + n_frames*512], frame labels [n_frames]).
+
+    Audio is a random alternation of speech spans (speechish or tone words)
+    and nonspeech spans (noise at varied level / near-silence); each 32 ms
+    frame is labeled 1 iff >=50% of its fresh samples overlap a speech span."""
+    total = n_frames * VAD_FRAME
+    audio = np.zeros(total, np.float32)
+    speech_mask = np.zeros(total, bool)
+    pos = 0
+    while pos < total:
+        span = int(rs.uniform(0.25, 1.6) * SR)
+        span = min(span, total - pos)
+        if rs.rand() < 0.5:  # speech span
+            kind = rs.rand()
+            if kind < 0.5:
+                # int(span/SR * SR) can round down to span-1: pad back below
+                seg = speechish(span / SR, rs)[:span]
+            else:
+                ids = rs.randint(0, N_WORDS, size=max(1, span // int(0.42 * SR)))
+                seg = make_utterance(ids, rs, lead_sec=0.02, noise=0.0)[:span]
+            if seg.size < span:
+                seg = np.pad(seg, (0, span - seg.size))
+            audio[pos : pos + span] = seg
+            # only the region that actually carries energy counts as speech.
+            # NB: mode="same" returns max(len(seg), 256) samples, so a tail
+            # span shorter than the RMS window must be truncated back.
+            rms = np.sqrt(np.convolve(seg.astype(np.float64) ** 2,
+                                      np.ones(256) / 256, mode="same"))[:span]
+            speech_mask[pos : pos + span] = rms > 0.01
+        else:  # nonspeech span
+            level = float(10 ** rs.uniform(-3.3, -2.0))  # 0.0005 .. 0.01
+            audio[pos : pos + span] = rs.randn(span).astype(np.float32) * level
+        pos += span
+    frames = speech_mask.reshape(n_frames, VAD_FRAME)
+    labels = (frames.mean(axis=1) >= 0.5).astype(np.float32)
+    full = np.concatenate([np.zeros(VAD_CONTEXT, np.float32), audio])
+    return full, labels
+
+
+def vad_batch(
+    rs: np.random.RandomState, batch: int, n_frames: int
+) -> tuple[np.ndarray, np.ndarray]:
+    audio = np.zeros((batch, VAD_CONTEXT + n_frames * VAD_FRAME), np.float32)
+    labels = np.zeros((batch, n_frames), np.float32)
+    for b in range(batch):
+        audio[b], labels[b] = vad_example(rs, n_frames)
+    return audio, labels
 
 
 # ----------------------------------------------------------------- diarizer
@@ -210,4 +316,21 @@ def lseend_batch(
         a8 = resample(mix, SR, LSEEND_SAMPLE_RATE)
         audio[b, : min(a8.size, audio.shape[1])] = a8[: audio.shape[1]]
         labels[b, : min(lab.shape[0], frames), : lab.shape[1]] = lab[:frames]
+    return audio, labels
+
+
+def sortformer_batch(
+    rs: np.random.RandomState,
+    batch: int,
+    mel_window: int = 3072,
+    overlap_prob: float = 0.15,
+) -> tuple[np.ndarray, np.ndarray]:
+    """(audio [B, mel_window*160], labels [B, mel_window//8, 4])."""
+    seconds = mel_window * 160 / SR
+    audio = np.zeros((batch, mel_window * 160), np.float32)
+    labels = np.zeros((batch, mel_window // 8, 4), np.float32)
+    for b in range(batch):
+        mix, _, lab = diarizer_mixture(rs, seconds, overlap_prob=overlap_prob)
+        audio[b, : mix.size] = mix[: audio.shape[1]]
+        labels[b, : lab.shape[0]] = lab[: labels.shape[1]]
     return audio, labels

@@ -114,6 +114,32 @@ def _torch_key_and_value(flax_key: str, value: np.ndarray) -> tuple[str, np.ndar
     return ".".join(parts), np.array(value, order="C")  # a writable copy
 
 
+def to_jax_key_and_shape(torch_key: str, shape: tuple[int, ...]
+                         ) -> tuple[str, tuple[int, ...], tuple[int, ...]]:
+    """The flax key and shape of a torch parameter of the modules a train
+    step builds (Dense, Conv1d/Conv2d, LayerNorm and free parameters: the
+    generic rules above, inverted), and for each flax axis the torch axis
+    that holds it. `parallel.mesh` applies JAX's sharding rule to these.
+
+    A torch `weight` of rank >= 2 is a flax `kernel` whose last (output)
+    axis is torch axis 0: Dense `[in, out]` from `[out, in]`, Conv1d
+    `[k, in/g, out]` from `[out, in/g, k]`, Conv2d `[kh, kw, in/g, out]` from
+    `[out, in/g, kh, kw]`. A rank-1 `weight` is a LayerNorm `scale`.
+    Everything else keeps its name and layout."""
+    parts = torch_key.split(".")
+    leaf, rank = parts[-1], len(shape)
+    if leaf == "weight" and rank >= 2:
+        axes = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}.get(rank)
+        if axes is None:
+            raise ValueError(f"unsupported weight rank {rank} at {torch_key}")
+        parts[-1] = "kernel"
+    else:
+        axes = tuple(range(rank))
+        if leaf == "weight":
+            parts[-1] = "scale"
+    return "/".join(parts), tuple(shape[a] for a in axes), axes
+
+
 def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
     """Nested dict of arrays -> {'/'-joined key: numpy array}."""
     flat: dict[str, np.ndarray] = {}

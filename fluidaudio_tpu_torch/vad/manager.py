@@ -38,6 +38,7 @@ import torch
 
 from fluidaudio_tpu_torch.models.silero_vad import FrameProgram, SileroV5Config, SileroVadV5
 from fluidaudio_tpu_torch.models.zoo import disable_tf32, load_or_init
+from fluidaudio_tpu_torch.parallel.mesh import axis_size, gather_rows, local_rows
 from fluidaudio_tpu_torch.registry import DownloadUtils, Repo
 from fluidaudio_tpu_torch.utils.device import resolve_device
 from fluidaudio_tpu_torch.vad.segmentation import detect_speech_sample_ranges, segments_from_ranges
@@ -95,15 +96,21 @@ class VadManager:
         self._program_cache: OrderedDict[tuple[int, int, str], FrameProgram] = OrderedDict()
         self._graph_pool = None  # the CUDA graph memory pool of every frame program
         self._warmup_stream: torch.cuda.Stream | None = None  # and their warm-up stream
+        self._mesh = None  # `set_mesh`
         if not skip_model_loading:
             self._load_params(checkpoint_dir, rng_seed, device)
 
     def set_mesh(self, mesh) -> None:
-        """`None` keeps single-device serving; sharding utterance batches over
-        devices waits for the torch.distributed slice (ROADMAP Queue A item 7)."""
+        """Enable (or with None disable) mesh-sharded batch VAD: each
+        `_run_batch` pads the utterance batch up to a multiple of the mesh's
+        "data" axis (zero rows, as JAX pads), each rank runs its rows through
+        the same frame program (a CUDA graph on the card) and the outputs are
+        all-gathered over "data". Every rank is given the same request;
+        parameters are replicated (each rank holds the whole model).
+        Mirrors `AsrManager.set_mesh`."""
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded VAD is not ported yet (ROADMAP Queue A item 7)")
+            assert self.model is not None, "model not loaded (skip_model_loading)"
+        self._mesh = mesh
 
     def _load_params(self, checkpoint_dir: str | Path | None, rng_seed: int,
                      device) -> None:
@@ -187,13 +194,25 @@ class VadManager:
         last_idx = np.asarray(
             [nc * FRAMES_PER_CHUNK - 1 for nc in n_chunks], np.int32
         )  # causal scan: pad tail can't leak back into the last real frame
-        dev = self.device
-        fn = self._frame_program(B, n_frames, pack_dtype)
+        dev, rows = self.device, slice(0, B)
+        if self._mesh is not None:
+            # pad the utterance batch to the mesh's data axis, this rank's rows
+            n_data = axis_size(self._mesh, "data")
+            Bp = -(-B // n_data) * n_data
+            if Bp != B:
+                audio, h0, c0, last_idx = (
+                    np.concatenate([x, np.zeros((Bp - B,) + x.shape[1:], x.dtype)])
+                    for x in (audio, h0, c0, last_idx))
+            rows = local_rows(self._mesh, Bp)
+        fn = self._frame_program(rows.stop - rows.start, n_frames, pack_dtype)
         probs, h_fin, c_fin = fn(
-            torch.from_numpy(audio).to(dev), torch.from_numpy(h0).to(dev),
-            torch.from_numpy(c0).to(dev), torch.from_numpy(last_idx).to(dev),
+            torch.from_numpy(audio[rows]).to(dev), torch.from_numpy(h0[rows]).to(dev),
+            torch.from_numpy(c0[rows]).to(dev), torch.from_numpy(last_idx[rows]).to(dev),
         )
-        host = torch.cat([probs, h_fin, c_fin], dim=1).cpu().numpy()  # one copy
+        out = torch.cat([probs, h_fin, c_fin], dim=1)
+        if self._mesh is not None:
+            out = gather_rows(self._mesh, out)[:B]
+        host = out.cpu().numpy()  # one copy
         probs = host[:, :n_frames]
         h_fin = host[:, n_frames : n_frames + STATE_SIZE]
         c_fin = host[:, n_frames + STATE_SIZE :]

@@ -25,6 +25,7 @@ from fluidaudio_tpu_torch.models.zoo import AsrModels
 from fluidaudio_tpu_torch.train import fixtures as port_fx
 from fluidaudio_tpu_torch.train import tiny_corpus as port_tc
 from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
+from tests.test_torch_parallel import cpu_mesh_1x1  # noqa: F401
 
 CKPT = trained_assets_dir() / "asr"
 
@@ -176,10 +177,11 @@ def test_warmup_runs_the_long_form_pipeline_once(managers, monkeypatch):
                      (3, (3, 16_000), False, [16_000] * 3, [False] * 3)]
 
 
-def test_set_mesh_none_keeps_single_device_serving(managers, utterances):
+def test_set_mesh_none_keeps_single_device_serving(managers, utterances, cpu_mesh_1x1):
     """JAX's contract: `set_mesh(None)` clears any mesh and serving stays on
-    one device with the same transcripts; a mesh raises until the port has
-    torch.distributed serving (ROADMAP item 7e)."""
+    one device with the same transcripts. A 1 x 1 mesh runs the sharded
+    long-form path (this rank's rows, then the gather) with the same
+    transcript and tokens; the 4 x 2 mesh is in `tests/test_torch_parallel.py`."""
     jax_mgr, port_mgr = managers
     audio = utterances[40][1]
     before = port_mgr.transcribe(audio)
@@ -188,6 +190,9 @@ def test_set_mesh_none_keeps_single_device_serving(managers, utterances):
     after = port_mgr.transcribe(audio)
     assert after.text == before.text == jax_mgr.transcribe(audio).text
     assert [t.token_id for t in after.token_timings] == [t.token_id for t in before.token_timings]
-    with pytest.raises(NotImplementedError, match="item 7e"):
-        port_mgr.set_mesh(object())
+    port_mgr.set_mesh(cpu_mesh_1x1)
+    meshed = port_mgr.transcribe(audio)
+    port_mgr.set_mesh(None)
+    assert meshed.text == before.text
+    assert [t.token_id for t in meshed.token_timings] == [t.token_id for t in before.token_timings]
     assert port_mgr.transcribe(utterances[5][1]).text == port_tc.transcript_text(utterances[5][0])

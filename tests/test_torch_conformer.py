@@ -51,7 +51,8 @@ def _both(cfg_kwargs, params, mel, lengths):
     ).apply(params, jnp.asarray(mel), jnp.asarray(lengths))
     enc = port.ConformerEncoder(port.ConformerConfig(**cfg_kwargs)).eval()
     load_state(enc, from_jax_params(params))
-    got, got_len = enc(torch.from_numpy(mel), torch.from_numpy(lengths))
+    with torch.no_grad():  # serving
+        got, got_len = enc(torch.from_numpy(mel), torch.from_numpy(lengths))
     return np.asarray(want), np.asarray(want_len), got.numpy(), got_len.numpy()
 
 
@@ -192,11 +193,24 @@ def test_preset_equals_jax(module, name):
     assert type(got).__name__ == type(want).__name__
 
 
-def test_attention_backend_other_than_auto_is_refused():
-    """JAX's `attention_backend="xla"` (its einsum path) has no counterpart:
-    the port's encoder refuses it rather than leave the kernel off the card."""
-    with pytest.raises(NotImplementedError, match="attention_backend='xla'"):
-        port.ConformerEncoder(port.ConformerConfig(**DH128, attention_backend="xla"))
+def test_xla_backend_equals_jax_xla_encoder(monkeypatch):
+    """`attention_backend="xla"` is JAX's einsum path: the plain version at
+    every head width (here Dh 128, where "auto" takes the kernel's wrapper),
+    never the wrapper, with or without a gradient; its output equals JAX's
+    "xla" encoder at `test_encoder_matches_jax`'s tolerance. Any other
+    value is refused."""
+    cfg = dict(DH128, attention_backend="xla")
+    mel = _mel(3, 161, seed=0)
+    lengths = np.array([161, 90, 33], np.int32)
+    params = _perturbed_init(DH128, mel, lengths)
+    monkeypatch.setattr(port, "relpos_attention", None)  # the wrapper is never called
+    plain_before = port.relpos_attention_plain.calls
+    want, want_len, got, got_len = _both(cfg, params, mel, lengths)
+    assert port.relpos_attention_plain.calls == plain_before + DH128["n_layers"]
+    np.testing.assert_array_equal(got_len, want_len)
+    np.testing.assert_allclose(got, want, atol=1e-3, rtol=1e-3)
+    with pytest.raises(ValueError, match="'auto' or 'xla'"):
+        port.ConformerEncoder(port.ConformerConfig(**DH128, attention_backend="pallas"))
 
 
 def test_limited_context_is_refused_by_the_offline_encoder():

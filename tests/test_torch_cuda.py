@@ -606,3 +606,107 @@ def test_converted_nemo_checkpoint_on_the_card_matches_the_oracle(cuda, tmp_path
         want, want_len = oracle(mel, lengths.long())
     assert got_len.tolist() == want_len.tolist()
     assert valid_rel_l2(got.cpu(), want, want_len.tolist()) <= 1e-4
+
+
+# ------------------------------------------------------- training and meshes
+
+TRAIN_SMALL = dict(n_mels=16, d_model=256, n_layers=2, n_heads=2, subsampling_channels=16,
+                   dtype="float32")
+
+
+def test_auto_attention_at_dh128_refuses_a_gradient_on_the_card(cuda):
+    """JAX's `jax.grad` cannot differentiate its Pallas kernel (Dh 128 on the
+    TPU) and the port's kernel has no backward: `"auto"` under a gradient at
+    Dh 128 on the card raises, naming `attention_backend="xla"`; serving
+    (no gradient) still takes the kernel."""
+    from fluidaudio_tpu_torch.models.conformer import ConformerConfig, ConformerEncoder
+
+    enc = ConformerEncoder(ConformerConfig(**TRAIN_SMALL), device=cuda)
+    mel = torch.randn(2, 16, 65, device=cuda)
+    lengths = torch.tensor([65, 40], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match='attention_backend="xla"'):
+        enc(mel, lengths)
+    before = attn.relpos_attention.launches
+    with torch.no_grad():
+        enc(mel, lengths)
+    assert attn.relpos_attention.launches == before + TRAIN_SMALL["n_layers"]
+
+
+@pytest.mark.parametrize("kind", ["ctc", "tdt"])
+def test_train_step_on_the_card_matches_cpu(cuda, kind):
+    """The same parameters and batch on both devices, TF32 off: loss within
+    1e-5 relative, the whole gradient within 1e-4 relative L2 (cuDNN's and
+    cuBLAS's f32 orders); no launch of either kernel."""
+    from fluidaudio_tpu_torch.models.conformer import ConformerConfig
+    from fluidaudio_tpu_torch.models.predictor import PredictorConfig
+    from fluidaudio_tpu_torch.models.zoo import disable_tf32
+    from fluidaudio_tpu_torch.parallel import train as pt
+
+    disable_tf32()
+    cfg = ConformerConfig(**TRAIN_SMALL, attention_backend="xla")
+    pcfg = PredictorConfig(vocab_size=32, pred_hidden=32, n_layers=1, enc_hidden=256,
+                           joint_hidden=32, n_durations=5)
+    rs = np.random.RandomState(0)
+    batch = {"mel": rs.randn(2, 16, 65).astype(np.float32),
+             "mel_lengths": np.array([65, 41], np.int32),
+             "labels": rs.randint(0, 32, (2, 8)).astype(np.int32),
+             "label_lengths": np.array([8, 5], np.int32)}
+    out = {}
+    for device in ("cpu", cuda):
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        if kind == "ctc":
+            state, enc, _ = pt.create_train_state(gen, cfg, 32, 65, device="cpu")
+            objective = pt.CtcObjective(enc.to(device), 32)
+        else:
+            state, mods, _ = pt.create_tdt_train_state(gen, cfg, pcfg, 65, device="cpu")
+            objective = pt.TdtObjective(tuple(m.to(device) for m in mods), pcfg, (0, 1, 2, 3, 4))
+        params = {k: v.detach().to(device).requires_grad_(True) for k, v in state.params.items()}
+        before = (attn.relpos_attention.launches, i8.int8_matmul_fused.launches)
+        loss, grads = pt.loss_and_grads(objective, params, batch)
+        assert (attn.relpos_attention.launches, i8.int8_matmul_fused.launches) == before
+        out[str(device)] = (float(loss), {k: g.cpu() for k, g in grads.items()})
+    (cpu_loss, cpu_g), (card_loss, card_g) = out["cpu"], out[str(cuda)]
+    assert abs(card_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
+    err = sum(float((card_g[k] - g).norm()) ** 2 for k, g in cpu_g.items()) ** 0.5
+    assert err <= 1e-4 * sum(float(g.norm()) ** 2 for g in cpu_g.values()) ** 0.5
+
+
+def test_one_card_mesh_serves_as_unsharded(cuda):
+    """`make_mesh(1)` brings up a one-rank NCCL group; `jit_sharded_infer`
+    on it gives the unsharded decode's tokens on the trained test-tiny
+    fixture, through the kernel (Dh 16)."""
+    import torch.distributed as dist
+
+    from fluidaudio_tpu_torch.models.zoo import AsrModels
+    from fluidaudio_tpu_torch.ops.tdt_decode import TdtDecodeConfig, make_initial_state
+    from fluidaudio_tpu_torch.ops.tdt_decode import tdt_greedy_decode
+    from fluidaudio_tpu_torch.parallel.infer import jit_sharded_infer
+    from fluidaudio_tpu_torch.parallel.mesh import make_mesh
+
+    owned = not dist.is_initialized()
+    mesh = make_mesh(1, device=cuda)
+    try:
+        m = AsrModels.load("test-tiny", checkpoint_dir=TRAINED_ASR, allow_random_init=False,
+                           device=cuda)
+        params = {f"{n}.{k}": v for n, part in (("encoder", m.encoder),
+                                                ("predictor", m.predictor),
+                                                ("joint", m.joint))
+                  for k, v in part.named_parameters()}
+        audio = torch.randn(2, 48_000, device=cuda) * 0.1
+        mel, mel_len = m.mel(audio, torch.tensor([48_000, 30_000], dtype=torch.int32,
+                                                 device=cuda))
+        before = attn.relpos_attention.launches
+        tokens, counts, enc_len = jit_sharded_infer(
+            mesh, (m.encoder, m.predictor, m.joint), m.spec.predictor, params)(params, mel,
+                                                                              mel_len)
+        assert attn.relpos_attention.launches == before + m.spec.conformer.n_layers
+        with torch.no_grad():
+            enc, enc_len2 = m.encoder(mel, mel_len)
+            dcfg = TdtDecodeConfig(blank_id=m.blank_id, max_tokens=64)
+            ref = tdt_greedy_decode(dcfg, m.predictor, m.joint, enc, enc_len2,
+                                    make_initial_state(dcfg, 1, m.spec.predictor.pred_hidden, 2,
+                                                       device=cuda))
+        assert torch.equal(tokens, ref.tokens) and torch.equal(counts, ref.counts)
+    finally:
+        if owned:
+            dist.destroy_process_group()

@@ -21,6 +21,7 @@ from fluidaudio_tpu_torch.asr import streaming_nemotron as port_nem
 from fluidaudio_tpu_torch.models.conformer_streaming import StreamingConformerConfig
 from fluidaudio_tpu_torch.train import tiny_corpus as tc
 from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
+from tests.test_torch_parallel import cpu_mesh_1x1  # noqa: F401
 
 TINY_NEM_ENC = StreamingConformerConfig(d_model=64, n_layers=2, n_heads=4,
                                         subsampling_channels=32, att_context_left=16)
@@ -177,9 +178,20 @@ def test_flush_subset_and_bad_feed():
 
 
 @pytest.mark.parametrize("make", [_eou_manager, _nemotron_manager], ids=["eou", "nemotron"])
-def test_set_mesh_is_not_ported(make):
-    with pytest.raises(NotImplementedError, match="torch.distributed is not ported yet"):
-        make().set_mesh(object())
+def test_set_mesh_1x1_equals_single_device(make, cpu_mesh_1x1):
+    """A session made under a 1 x 1 mesh (this rank's rows, the outputs
+    gathered) gives the unsharded session's finals; the 4 x 2 mesh cases
+    are in `tests/test_torch_parallel.py`."""
+    mgr = make()
+    utts, _ = _eou_utterances(2, seed=31)
+    session = mgr.make_multi_state(2)
+    mgr.process_multi(session, utts)
+    want = mgr.flush_multi(session)
+    mgr.set_mesh(cpu_mesh_1x1)
+    session = mgr.make_multi_state(2)
+    assert session.mesh is cpu_mesh_1x1 and session.rows == slice(0, 2)
+    mgr.process_multi(session, utts)
+    _same(mgr.flush_multi(session), want)
 
 
 @pytest.mark.parametrize("make", [_eou_manager, _nemotron_manager], ids=["eou", "nemotron"])

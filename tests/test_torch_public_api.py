@@ -1,10 +1,9 @@
 """Public surface of the PyTorch port against `tests/test_public_api.py`.
 
-Each entry of the JAX package's documented surface whose module is ported
-has its `fluidaudio_tpu_torch.` counterpart, named here one by one (the
-entries still missing are listed in ROADMAP.md). Each ported subpackage's
-`__init__` re-exports the names the JAX `__init__` exports, less the
-names of modules not ported yet, listed here.
+Each entry of the JAX package's documented surface has its
+`fluidaudio_tpu_torch.` counterpart, named here one by one. Each ported
+subpackage's `__init__` re-exports the names the JAX `__init__` exports
+(`NOT_PORTED` would list those of modules not ported; it is empty).
 """
 
 import importlib
@@ -69,6 +68,7 @@ PORTED = [
     ("fluidaudio_tpu_torch.tts.roundtrip", "tts_asr_roundtrip"),
     ("fluidaudio_tpu_torch.itn", "TextNormalizer"),
     ("fluidaudio_tpu_torch.utils.chunk_queue", "StreamingChunkQueue"),
+    ("fluidaudio_tpu_torch.parallel.mesh", "make_mesh"),
 ]
 
 
@@ -93,6 +93,8 @@ NOT_PORTED = {
     "diarizer.offline": set(),
     "tts": set(),
     "itn": set(),
+    "train": set(),
+    "parallel": set(),
 }
 
 
@@ -121,8 +123,8 @@ def test_default_config_and_version():
     assert __version__
 
 
-def test_only_the_parallel_mesh_is_missing():
+def test_nothing_of_the_surface_is_missing():
     """Every entry of the JAX package's documented surface has its port
-    counterpart in PORTED but `parallel.mesh.make_mesh` (ROADMAP item 7)."""
+    counterpart in PORTED."""
     ported = {("fluidaudio_tpu." + m.removeprefix("fluidaudio_tpu_torch."), a) for m, a in PORTED}
-    assert set(PUBLIC_API) - ported == {("fluidaudio_tpu.parallel.mesh", "make_mesh")}
+    assert set(PUBLIC_API) - ported == set()

@@ -47,6 +47,7 @@ from fluidaudio_tpu_torch.train import fixtures as port_fixtures
 from fluidaudio_tpu_torch.utils.weights import from_jax_params, load_state
 from tests.test_torch_custom_vocab import jax_cases, jax_fixtures as jax_test_fixtures
 from tests.test_torch_custom_vocab import one_torch_thread  # noqa: F401
+from tests.test_torch_parallel import cpu_mesh_1x1  # noqa: F401
 
 ATOL = 1e-5
 CKPT = jax_fixtures.trained_assets_dir() / "sortformer"
@@ -249,11 +250,20 @@ def test_offline_windows_match_single_and_int16(trained_pair):
     np.testing.assert_allclose(batched16, batched, atol=1e-5)
 
 
-def test_set_mesh_raises_until_the_port_has_a_mesh(trained_pair):
+def test_set_mesh_1x1_equals_single_device(trained_pair, cpu_mesh_1x1):
+    """`process_offline` under a 1 x 1 mesh (this rank's windows, the
+    predictions gathered) gives the unsharded segments; the 4 x 2 mesh is in
+    `tests/test_torch_parallel.py`."""
     _, d = trained_pair
     d.set_mesh(None)
-    with pytest.raises(NotImplementedError):
-        d.set_mesh(object())
+    mix, _, _ = jax_tc.diarizer_mixture(np.random.RandomState(4242), 60.0)
+    want = d.process_offline(mix).segments
+    d.set_mesh(cpu_mesh_1x1)
+    try:
+        got = d.process_offline(mix).segments
+    finally:
+        d.set_mesh(None)
+    assert [vars(s) for s in got] == [vars(s) for s in want]
 
 
 # ------------------------------------------------- the JAX suites' own cases

@@ -120,6 +120,7 @@ def _enc(B, T, seed, scale=2.0):
     return (np.random.RandomState(seed).randn(B, T, PCFG["enc_hidden"]) * scale).astype(np.float32)
 
 
+@torch.no_grad()  # serving: the forwards are differentiable, decode runs them under no_grad
 def test_predictor_and_joint_match_jax(models):
     jax_pred, jax_joint, tpred, tjoint = models
     rs = np.random.RandomState(0)

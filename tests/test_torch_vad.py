@@ -35,6 +35,7 @@ from fluidaudio_tpu_torch.train import fixtures as port_fx
 from fluidaudio_tpu_torch.utils import weights
 from fluidaudio_tpu_torch.vad import VadManager, VadSegmentationConfig
 from tests.test_torch_custom_vocab import jax_cases, jax_fixtures, one_torch_thread  # noqa: F401
+from tests.test_torch_parallel import cpu_mesh_1x1  # noqa: F401
 
 ATOL = 1e-5
 CKPT = jax_fx.trained_assets_dir() / "vad"
@@ -183,11 +184,19 @@ def test_program_cache_keeps_the_most_recent_shapes():
     assert list(mgr._program_cache)[-1][0] == 1 and len(mgr._program_cache) == limit
 
 
-def test_set_mesh():
+def test_set_mesh(cpu_mesh_1x1):
+    """`set_mesh(None)` keeps single-device serving; a 1 x 1 mesh runs the
+    sharded batch path (padding, this rank's rows, the gather) with
+    probabilities equal to the unsharded ones (the 4 x 2 mesh, with the
+    batch padded from 5 to 8 rows, is in `tests/test_torch_parallel.py`)."""
     _, port_mgr = managers()
     port_mgr.set_mesh(None)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port_mgr.set_mesh(object())
+    clips = [clip for _, clip in port_fx.vad_fixture_clips()][:5]
+    want = [probs(b) for b in port_mgr.process_batch(clips)]
+    port_mgr.set_mesh(cpu_mesh_1x1)
+    got = [probs(b) for b in port_mgr.process_batch(clips)]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 VAD_EDITS = [("VadManager(VadConfig())", 'VadManager(VadConfig(), device="cpu")')]

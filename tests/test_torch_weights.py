@@ -245,9 +245,12 @@ def test_importing_the_port_leaves_no_jax_in_sys_modules():
             "'fluidaudio_tpu_torch.native.fastcluster',"
             "'fluidaudio_tpu_torch.tts.pocket_manager', 'fluidaudio_tpu_torch.tts.styletts2_manager',"
             "'fluidaudio_tpu_torch.tts.supertonic_manager', 'fluidaudio_tpu_torch.tts.mandarin_g2p',"
-            "'fluidaudio_tpu_torch.models.byt5_g2p', 'fluidaudio_tpu_torch.models.bert_g2pw'));"
+            "'fluidaudio_tpu_torch.models.byt5_g2p', 'fluidaudio_tpu_torch.models.bert_g2pw',"
+            "'fluidaudio_tpu_torch.parallel.train', 'fluidaudio_tpu_torch.parallel.infer',"
+            "'fluidaudio_tpu_torch.train.transducer_loss'));"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'jaxlib', 'fluidaudio_tpu')]; print(bad); sys.exit(bool(bad))")
+            "('jax', 'flax', 'jaxlib', 'optax', 'fluidaudio_tpu')];"
+            "print(bad); sys.exit(bool(bad))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=PORT_DIR.parent,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
