@@ -14,14 +14,19 @@ line is not printed:
      engine from `native/{flac,fastcluster,itn}/` (the host C++ compiler,
      beside them) and the sysinfo shim from `native/sysinfo/sysinfo.c` (the
      host C compiler), and
-     what ptxas reports of the attention kernel and the int8 GEMM
-     (registers, spills, shared memory);
+     what ptxas reports of the attention kernels (the bf16 `wgmma` one and
+     the two f32 ones) and the int8 GEMM (registers, spills, shared memory);
   2. the rel-pos attention kernel against its plain PyTorch version on the
      card at the v3 shapes (B=4, H=8, T=188, Dh=128, lengths
      [188,100,17,188], bf16; max abs error on valid rows below 0.06), in
      both call forms: contiguous inputs with f32 out, and the encoder's
      strided views with `out=` a bf16 view, which must equal the f32 result
-     rounded to bf16 bit for bit; and on the shift-only probe;
+     rounded to bf16 bit for bit; and on the shift-only probe; then the f32
+     kernels (`relpos_attention_simt`, and `relpos_attention_short_simt` at
+     T <= 16) over Dh 16/32/64/128 x T 1, 6, 16, 17, 33, 188, 384 in the
+     encoder's form (strided views, lengths [T, 0, T // 2]): every row
+     within 1e-4 of the plain version with `out=` an f32 view, a bf16 view
+     equal to it rounded, contiguous inputs equal to it;
   3. the int8 matmul kernel against its plain version at the v3 shapes
      (752 x 1024 x 4096 and 752 x 4096 x 1024 with bias, the 375-row pos
      projection without), the JAX test shapes, and the B=128 encoder shapes
@@ -41,13 +46,16 @@ line is not printed:
      call; the int8 encoder with the kernel against the int8 encoder with
      the plain int8 matmul on one 15 s x 4 batch; the cosine between the
      int8 and bf16 encoders on the same weights (information only);
-  7. timing (CUDA events, card name and power limit on every line): both
+  7. timing (CUDA events, card name and power limit on every line; kernel
+     times queued behind a spin on the card, so device time alone): both
      kernels against their plain versions, the attention kernel in both
      call forms at B=128 beside each bound (and, for context only, SDPA
-     at the same q/k/v shape without the position term), the int8 kernel at each of the
-     five distinct shapes of a B=128 encoder call beside its bound and its
-     launches per call (and, for context only, bf16 `F.linear` and
-     `torch._int_mm`, which are not the same function), the
+     at the same q/k/v shape without the position term) and in f32 at the
+     converted f32 v3 encoder's form (B 128, T 188, Dh 128), the int8
+     kernel at each of the five distinct shapes of a B=128 encoder call
+     beside its bound and its launches per call, its row-quantise pass
+     apart (profiler) beside that pass's bound (and, for context only, bf16
+     `F.linear` and `torch._int_mm`, which are not the same function), the
      v3 encoder at B=128 in bf16 and int8, and the bf16 and int8
      `build_pipeline(128)` RTFx on 15 s windows with the joint blank bias
      calibrated to 9-12 tokens/s of audio;
@@ -75,8 +83,12 @@ line is not printed:
      and v3's (Dh 128) on the card against the CPU (relative L2 and one
      RelPosMHSA alone within 1e-4), with 0 kernel launches and one plain
      call per layer outside the kernel's range and one launch per layer
-     inside it; the first request of a fresh v3 bf16 manager without and
-     then with `warmup()`;
+     inside it; `ConformerEncoder(EOU_120M)` (17 x 512, limited attention
+     context: left 70, right 0) at full width and depth in f32 on the card
+     against the CPU (relative L2 <= 1e-4) on 2 rows of T' 101 and 70, with
+     the plain attention over the band once per layer and no kernel
+     launched, as JAX takes its einsum path there; the first request of a
+     fresh v3 bf16 manager without and then with `warmup()`;
  11. the Parakeet facades and the CTC stack on the trained fixtures, on the
      card against the port on the CPU: `SlidingWindowAsrManager` and
      `StreamingUnifiedAsrManager` on the `asr` fixture (every update equal,
@@ -122,7 +134,8 @@ line is not printed:
  16. diarization: the attention kernel against its plain version at
      Sortformer's shapes (SORTFORMER_V2: Dh 64, H 8; T 384 at B 16, the
      offline windows, and T 6 at B 1024, the streaming chunks), in f32 (tol
-     1e-4) and bf16 (tol 0.06), timed beside its bound; the trained
+     1e-4) and bf16 (tol 0.06), timed beside its bound (the f32 kernels'
+     record, with phase 7's f32 shape, goes into the kernel line); the trained
      `offline` (offline and online managers) and `sortformer` fixtures on
      the card against the CPU (segments and DER equal, gates met, no kernel
      launched); at full width with seeded random weights drawn on the card,
@@ -234,7 +247,10 @@ line is not printed:
 
 The line before the last is the kernel record (JSON, with each kernel's
 launches on its main path and on each path of phases 11-21, the plain
-attention's calls on the paths that take it, bound and times); the last
+attention's calls on the paths that take it, bound and times; the f32
+attention kernels' error, times at their three shapes and launches per
+Sortformer encoder call under "f32"; the int8 call's quantise pass per
+shape under "quantize_rows"); the last
 line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
@@ -258,6 +274,12 @@ TRAINED_ASR = TRAINED / "asr"
 TRAINED_EOU = TRAINED / "eou"
 TRAINED_NEMOTRON = TRAINED / "nemotron"
 PARITY_TOL = 0.06  # bf16 inputs, f32 math on both sides (scripts/tpu_kernel_parity.py)
+# f32 in against the plain version in f32: the same math in another order
+SF_F32_TOL = 1e-4
+# the f32 kernels' sweep: every head width class and T on both sides of the
+# short-T kernel (T <= 16), Sortformer's T 6 and 384 and the f32 v3 form's 188
+F32_SWEEP_DH = (16, 32, 64, 128)
+F32_SWEEP_T = (1, 6, 16, 17, 33, 188, 384)
 WER_GATE = 0.02
 TARGET_TOK_PER_S = (9.0, 12.0)  # LibriSpeech-like emission band of v3
 WINDOW = 240_000  # 15 s at 16 kHz
@@ -288,6 +310,7 @@ STREAM_CARD_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
+F32_FLOPS = 67e12  # float32 outside the tensor cores (data sheet, dense)
 
 
 class SmokeFailure(RuntimeError):
@@ -300,6 +323,11 @@ def check(ok: bool, what: str) -> None:
 
 
 TIMED: dict[str, dict] = {}  # this run's timing lines: label -> peak GiB, launches
+# the f32 attention kernels in the kernel line: the sweep's error (phase 2),
+# the times at the three f32 shapes (phases 7 and 16) and the launches per
+# Sortformer encoder call (phase 16)
+F32_RECORD: dict = {"kernels": ["relpos_attention_simt", "relpos_attention_short_simt"],
+                    "shapes": {}}
 
 
 def report(line: str, **print_kw) -> None:
@@ -327,6 +355,27 @@ def cuda_ms(fn, iters: int = 20) -> float:
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+SPIN_CYCLES = 30_000_000  # ~17 ms of the card's clock: longer than the host takes to queue a timing
+
+
+def kernel_ms(fn, iters: int = 20) -> float:
+    """Mean device time of `fn` in ms over `iters` calls, after a warm-up,
+    with the calls queued behind a spin on the device (`torch.cuda._sleep`),
+    so that the host's time to launch them (the wrappers' Python, ~0.05 ms
+    a call) is not counted: the kernels' times at shapes shorter than that."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -450,6 +499,12 @@ def phase_device(attn, i8) -> tuple[str, str]:
           f"{report or 'built before this run'} | dynamic shared memory "
           f"{attn_lib.relpos_attention_smem_bytes(64)} B (Dh <= 64), "
           f"{attn_lib.relpos_attention_smem_bytes(128)} B (Dh 80-128)")
+    log = built[attn.KERNEL_SOURCE.name][1]
+    f32 = " || ".join(f"{name}: {ptxas_report(log, name) or 'built before this run'}"
+                      for name in ("relpos_attention_simt", "relpos_attention_short_simt"))
+    print(f"phase 1 f32 attention kernels (nvcc -Xptxas -v): {f32} | dynamic shared memory of "
+          f"relpos_attention_simt {attn_lib.relpos_attention_f32_smem_bytes(64)} B (Dh 64), "
+          f"{attn_lib.relpos_attention_f32_smem_bytes(128)} B (Dh 128)")
     report = ptxas_report(built[i8.KERNEL_SOURCE.name][1], "int8_gemm_dequant")
     print(f"phase 1 int8_gemm_dequant (nvcc -Xptxas -v): {report or 'built before this run'} | "
           f"dynamic shared memory {lib.int8_gemm_dequant_smem_bytes()} B")
@@ -458,16 +513,19 @@ def phase_device(attn, i8) -> tuple[str, str]:
 
 def ptxas_report(log: str, kernel: str) -> str:
     """What ptxas printed of each instance of `kernel` (registers, static
-    shared memory, spills), one instance per '|', named by its output type
-    (and its padded head width, where it has one)."""
+    shared memory, spills), one instance per '|', named by its padded head
+    width and its output type, where they are template arguments (the f32
+    attention kernels take the output type at run time)."""
     parts, current = [], False
     for line in log.splitlines():
         if "Compiling entry function" in line:
             current = kernel in line
             if current:
                 width = re.search(kernel + r"ILi(\d+)E", line)
-                parts.append([f"{f'Dh pad {width.group(1)}, ' if width else ''}"
-                              f"{'bf16' if 'bfloat16' in line else 'f32'} out:"])
+                name = [f"Dh pad {width.group(1)}"] if width else []
+                if "simt" not in kernel:
+                    name.append(f"{'bf16' if 'bfloat16' in line else 'f32'} out")
+                parts.append([", ".join(name) + ":"])
         elif current and ("spill" in line or "Used" in line):
             parts[-1].append(line.replace("ptxas info    :", "").strip())
     return " | ".join(" ".join(p) for p in parts)
@@ -516,7 +574,42 @@ def phase_kernel_parity(attn, device) -> float:
     print(f"phase 2 attention kernel vs plain: B=4 H=8 T=188 Dh=128 bf16 lengths {lengths} "
           f"max_abs_err(valid rows): {forms} | strided bf16 out == f32 out rounded to bf16: "
           f"bit-equal | shift-only probe {shift_err:.3e} | tol {PARITY_TOL}")
+    f32_err, summary = f32_parity(attn, device)
+    F32_RECORD["max_abs_err"] = f32_err
+    print(f"phase 2 f32 attention kernels vs plain: {summary}", flush=True)
     return err
+
+
+def f32_parity(attn, device) -> tuple[float, str]:
+    """The f32 kernels (`relpos_attention_simt`, and `relpos_attention_short_simt`
+    at T <= 16) against the plain version over F32_SWEEP_DH x F32_SWEEP_T in
+    the encoder's form (strided views, ragged lengths with a 0), every row
+    compared: `out=` an f32 view within SF_F32_TOL, a bf16 view equal to it
+    rounded, and contiguous inputs with the default out equal to it. ->
+    (max abs error, summary)."""
+    worst, B, H = 0.0, 3, 2
+    for Dh in F32_SWEEP_DH:
+        for T in F32_SWEEP_T:
+            lengths = [T, 0, max(1, T // 2)]
+            lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+            qu, qw, k, v, p = attention_inputs(B, H, T, Dh, torch.float32, device,
+                                               seed=Dh + T, strided=True)
+            out = torch.empty(B, T, H, Dh, device=device).transpose(1, 2)
+            got = attn.relpos_attention(qu, qw, k, v, p, lens, T, out=out)
+            rounded = attn.relpos_attention(qu, qw, k, v, p, lens, T, out=bf16_out(B, H, T, Dh,
+                                                                                   device))
+            contiguous = attn.relpos_attention(*(x.contiguous() for x in (qu, qw, k, v, p)),
+                                               lens, T)
+            torch.cuda.synchronize()
+            err = (got - attn.relpos_attention_plain(qu, qw, k, v, p, lens, T)).abs().max().item()
+            where = f"f32 relpos_attention B={B} H={H} T={T} Dh={Dh} lengths {lengths}"
+            check(err <= SF_F32_TOL, f"{where}: max abs err {err} > {SF_F32_TOL}")
+            check(torch.equal(rounded, got.bfloat16()), f"{where}: bf16 out != f32 out rounded")
+            check(torch.equal(contiguous, got), f"{where}: contiguous inputs differ")
+            worst = max(worst, err)
+    return worst, (f"Dh {F32_SWEEP_DH} x T {F32_SWEEP_T} (B={B} H={H}, lengths [T, 0, T//2], "
+                   f"strided views) max abs err {worst:.3e} (tol {SF_F32_TOL}) | bf16 out == f32 "
+                   f"out rounded, contiguous inputs == strided: bit-equal")
 
 
 def phase_int8_parity(i8, device) -> float:
@@ -742,7 +835,7 @@ def time_attention(attn, device, smi: str, batch: int = 128) -> dict:
         kernel = lambda: attn.relpos_attention(qu, qw, k, v, p, lens, T, out=out)
         plain = lambda: attn.relpos_attention_plain(qu, qw, k, v, p, lens, T, out=out)
         # plain, kernel, kernel, plain: drift in clocks shows up as a spread
-        p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
+        p1, k1, k2, p2 = kernel_ms(plain), kernel_ms(kernel), kernel_ms(kernel), kernel_ms(plain)
         # all rows are full length here
         nbytes, ops = attention_cost(B, H, T, Dh, 2 if strided else 4)
         bound_ms, bound_by = bound(nbytes, ops, BF16_FLOPS)
@@ -753,12 +846,59 @@ def time_attention(attn, device, smi: str, batch: int = 128) -> dict:
         record = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound_ms,
                   "bound_by": bound_by, "library_ms": None}
     q, kk, vv = (x.contiguous() for x in (qu, k, v))
-    sdpa = [cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, kk, vv))
+    sdpa = [kernel_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, kk, vv))
             for _ in range(2)]
     report(f"timing [{smi}] context, not the same function: SDPA on q/k/v [{B}, {H}, {T}, "
            f"{Dh}] bf16 without the position term {sdpa[0]:.4f}/{sdpa[1]:.4f} ms; no PyTorch "
            f"call computes the XL-shifted scores")
+    del qu, qw, k, v, p, q, kk, vv
+    time_f32(attn, device, smi, B, H, T, Dh, "the converted f32 v3 encoder's form")
     return record
+
+
+def time_f32(attn, device, smi: str, B: int, H: int, T: int, Dh: int, form: str,
+             note: str = "") -> str:
+    """The f32 kernel in the encoder's form (strided f32 views in, an f32
+    view out, every row full length) in turns with the plain version
+    (plain, kernel, kernel, plain), beside its bound at the FP32 rate;
+    kept in F32_RECORD. -> the timing line (ending in `note`)."""
+    lens = torch.full((B,), T, dtype=torch.int32, device=device)
+    qu, qw, k, v, p = attention_inputs(B, H, T, Dh, torch.float32, device, seed=16,
+                                       strided=True)
+    out = torch.empty(B, T, H, Dh, device=device).transpose(1, 2)
+    kernel = lambda: attn.relpos_attention(qu, qw, k, v, p, lens, T, out=out)
+    plain = lambda: attn.relpos_attention_plain(qu, qw, k, v, p, lens, T)
+    p1, k1, k2, p2 = kernel_ms(plain), kernel_ms(kernel), kernel_ms(kernel), kernel_ms(plain)
+    nbytes, ops = attention_cost(B, H, T, Dh, 4, 4)
+    bound_ms, bound_by = bound(nbytes, ops, F32_FLOPS)
+    F32_RECORD["shapes"][f"B={B} H={H} T={T} Dh={Dh}"] = {
+        "ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None}
+    line = (f"timing [{smi}] relpos_attention B={B} H={H} T={T} Dh={Dh} f32 ({form}): kernel "
+            f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}, {nbytes / 1e6:.1f} MB, peak {F32_FLOPS / 1e12:.0f} TFLOP/s), "
+            f"{bound_ms / min(k1, k2):.1%} of it{note}")
+    report(line, flush=True)
+    return line
+
+
+def kernel_split_ms(fn, n: int, names: tuple[str, ...]) -> dict[str, float]:
+    """torch.profiler over n calls of fn -> device ms per call of the kernels
+    whose names hold each of `names` (the raw events, as device_activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.profiler.kineto_results.events():
+        for name in names:
+            if e.device_type().name == "CUDA" and name in e.name():
+                out[name] += e.duration_ns() / 1e6 / n
+    check(all(v > 0 for v in out.values()), f"the profiler saw none of {names}: {out}")
+    return out
 
 
 def time_int8(i8, device, smi: str) -> dict:
@@ -766,22 +906,33 @@ def time_int8(i8, device, smi: str) -> dict:
     bound and its launches per call, in turns (plain, kernel, kernel,
     plain). bf16 `F.linear` and `torch._int_mm` (the int8 product alone)
     are context, not the same function; no single PyTorch call quantises,
-    multiplies and dequantises. -> the fc1 shape's record."""
+    multiplies and dequantises. The call's two kernels apart (profiler
+    device time): `quantize_rows` beside its bound (x read, the codes and
+    the row scales written: M K (2 + 1) + 4 M bytes) and `int8_gemm_dequant`.
+    -> the fc1 shape's record, with the quantise pass's per shape and per
+    encoder call."""
     out, per_call, bound_per_call = {}, 0.0, 0.0
+    quant, quant_call, quant_bound_call = {}, 0.0, 0.0
     check(sum(n for *_, n in INT8_ENCODER_SHAPES) == INT8_LAYERS_PER_BLOCK * 24 + 1,
           "the encoder shapes must cover all 265 launches")
     for name, M, K, N, with_bias, launches in INT8_ENCODER_SHAPES:
         x, wq, ws, bias = int8_inputs(M, K, N, with_bias, torch.bfloat16, device, seed=K + N)
         kernel = lambda: i8.int8_matmul_fused(x, wq, ws, bias, torch.bfloat16)
         plain = lambda: i8.int8_matmul_fused_plain(x, wq, ws, bias, torch.bfloat16)
-        p1, k1, k2, p2 = (cuda_ms(plain, 5), cuda_ms(kernel), cuda_ms(kernel),
-                          cuda_ms(plain, 5))
+        p1, k1, k2, p2 = (kernel_ms(plain, 5), kernel_ms(kernel), kernel_ms(kernel),
+                          kernel_ms(plain, 5))
+        split = kernel_split_ms(kernel, 5, ("quantize_rows", "int8_gemm_dequant"))
+        q_ms, q_bound = split["quantize_rows"], (3 * M * K + 4 * M) / HBM_BYTES_PER_S * 1e3
+        quant[name] = {"ms": q_ms, "bound_ms": q_bound, "bound_by": "bytes",
+                       "gemm_ms": split["int8_gemm_dequant"], "launches": launches}
+        quant_call += launches * q_ms
+        quant_bound_call += launches * q_bound
         w_bf16 = (wq.float() * ws[:, None]).bfloat16()
         b_bf16 = None if bias is None else bias.bfloat16()
-        linear_ms = cuda_ms(lambda: torch.nn.functional.linear(x, w_bf16, b_bf16))
+        linear_ms = kernel_ms(lambda: torch.nn.functional.linear(x, w_bf16, b_bf16))
         xq = i8.quantize_rows(x)[0]
         try:
-            int_mm = f"{cuda_ms(lambda: torch._int_mm(xq, wq.T)):.4f} ms"
+            int_mm = f"{kernel_ms(lambda: torch._int_mm(xq, wq.T)):.4f} ms"
         except RuntimeError as e:  # context only: the port never calls it
             int_mm = f"not measured ({str(e).splitlines()[0][:80]})"
         nbytes, ops = int8_cost(M, K, N, with_bias, 2, 2)
@@ -791,14 +942,20 @@ def time_int8(i8, device, smi: str) -> dict:
         report(f"timing [{smi}] int8_matmul_fused {name} M={M} K={K} N={N} bf16"
                f"{' +bias' if with_bias else ''}, {launches} launches per encoder call: kernel "
                f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound {bound_ms:.4f} ms "
-               f"({bound_by}) | context, not the same function: bf16 F.linear "
-               f"{linear_ms:.4f} ms, torch._int_mm {int_mm}")
+               f"({bound_by}) | apart (profiler): quantize_rows {q_ms:.4f} ms, bound "
+               f"{q_bound:.4f} ms (bytes), {q_bound / q_ms:.0%} of it; int8_gemm_dequant "
+               f"{split['int8_gemm_dequant']:.4f} ms | context, not the same function: bf16 "
+               f"F.linear {linear_ms:.4f} ms, torch._int_mm {int_mm}")
         if not out:  # the fc1 shape goes into the kernel record
             out = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound_ms,
                    "bound_by": bound_by, "library_ms": None}
         del x, wq, ws, bias, xq, w_bf16
     report(f"timing [{smi}] int8_matmul_fused per B=128 encoder call (sum of launches x best "
-           f"time above): {per_call:.3f} ms against a summed bound of {bound_per_call:.3f} ms")
+           f"time above): {per_call:.3f} ms against a summed bound of {bound_per_call:.3f} ms; "
+           f"of it quantize_rows {quant_call:.3f} ms against its summed bound "
+           f"{quant_bound_call:.3f} ms, {quant_bound_call / quant_call:.0%} of it")
+    out["quantize_rows"] = {"per_encoder_call_ms": quant_call,
+                            "bound_per_encoder_call_ms": quant_bound_call, "shapes": quant}
     return out
 
 
@@ -1370,6 +1527,50 @@ DISPATCH_ENCODERS = [("Dh 8 (Cohere test trunk)", dict(n_mels=16, d_model=32, n_
                                                          subsampling_channels=160))]
 
 
+LIMITED_MEL = (801, 560)  # mel frames of the two rows: T' 101 (past the left context 70), 70
+
+
+def limited_context_encoder(attn, i8, device) -> str:
+    """`ConformerEncoder(EOU_120M)` (17 x 512, limited context left 70,
+    right 0) at full width and depth in f32 with seeded random weights and
+    position biases, on the card against the CPU on the same weights:
+    relative L2 <= 1e-4 and the plain attention over the band once per
+    layer, no kernel launched (JAX's encoder takes its einsum path there).
+    -> the phase line."""
+    import copy
+    import dataclasses
+
+    from fluidaudio_tpu_torch.models.conformer import EOU_120M, ConformerEncoder
+    from fluidaudio_tpu_torch.models.zoo import random_init_
+
+    cfg = dataclasses.replace(EOU_120M, dtype="float32")
+    cpu_enc = ConformerEncoder(cfg).eval()
+    g = torch.Generator().manual_seed(12)
+    random_init_(cpu_enc, g)
+    with torch.no_grad():
+        for i in range(cfg.n_layers):
+            mhsa = getattr(cpu_enc, f"block{i}").mhsa
+            mhsa.pos_bias_u.normal_(0, 0.1, generator=g)
+            mhsa.pos_bias_v.normal_(0, 0.1, generator=g)
+    card_enc = copy.deepcopy(cpu_enc).to(device)
+    mel = torch.randn(2, cfg.n_mels, max(LIMITED_MEL), generator=g)
+    mel_len = torch.tensor(LIMITED_MEL, dtype=torch.int32)
+    with torch.no_grad():
+        (got, got_len), c = counted(attn, i8, lambda: card_enc(mel.to(device), mel_len.to(device)))
+        want, want_len = cpu_enc(mel, mel_len)
+    rel = rel_l2(got.cpu(), want)
+    check(got.shape[1] > cfg.att_context_left and torch.equal(got_len.cpu(), want_len),
+          f"EOU_120M: T' {got.shape[1]} must pass the left context, lengths {got_len.tolist()}")
+    check(c["relpos_attention"] == 0 and c["int8_matmul_fused"] == 0
+          and c["relpos_attention_plain calls"] == cfg.n_layers,
+          f"EOU_120M limited context: counts {c}, want the plain attention once per layer")
+    check(rel <= 1e-4, f"EOU_120M limited context: card vs CPU relative L2 {rel}")
+    return (f"limited attention context, ConformerEncoder(EOU_120M) f32 ({cfg.n_layers} x "
+            f"{cfg.d_model}, left {cfg.att_context_left}, right {cfg.att_context_right}), 2 rows "
+            f"of T' {got_len.tolist()}: card vs CPU relative L2 {rel:.2e} (tol 1e-4) | launches "
+            f"{c} (the plain attention over the band, as JAX's einsum path)")
+
+
 def phase_repairs(attn, i8, device, build_s: str) -> None:
     """Phase 10: the attention dispatch by head width on the card against
     the CPU, and the first request of a fresh v3 manager with and without
@@ -1422,6 +1623,7 @@ def phase_repairs(attn, i8, device, build_s: str) -> None:
                      f"{cfg.n_layers} layers | encoder card vs CPU rel L2 {rel:.2e}, "
                      f"RelPosMHSA alone max abs {m_err:.2e} (tol 1e-4)")
     print(f"phase 10 attention dispatch by head width (f32, 2 layers): {' | '.join(parts)}")
+    print(f"phase 10 {limited_context_encoder(attn, i8, device)}", flush=True)
 
     rs = np.random.RandomState(10)
     audio = speechlike(rs, 15.0)
@@ -2248,10 +2450,6 @@ def phase_families_full_width(attn, i8, device, smi: str) -> dict:
 # the offline 30.72 s windows (T 384, a bucket of 16) and the streaming
 # chunks (T 6, a bucket of 1024 chunks: a 300 s recording's 625 chunks)
 SORTFORMER_ATTN_SHAPES = [(16, 8, 384, 64), (1024, 8, 6, 64)]
-# f32 in (the config's dtype: the kernel's SIMT path) against the plain
-# version in f32: the same math in another order
-SF_F32_TOL = 1e-4
-F32_FLOPS = 67e12  # float32 outside the tensor cores (data sheet, dense)
 DIAR_SECONDS = 300.0
 SF_LIVE_CHUNKS = 50
 SF_ENCODER_LAYERS = 17  # SORTFORMER_V2: one attention launch per layer per encoder call
@@ -2275,8 +2473,14 @@ def sortformer_attention(attn, device, smi: str) -> tuple[float, list[str]]:
             got = kernel().float()
             err = float((got - plain()).abs().max())
             check(err <= tol, f"relpos_attention B={B} T={T} Dh={Dh} {dtype}: err {err} > {tol}")
-            worst = max(worst, err) if dtype == torch.bfloat16 else worst
-            p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
+            if dtype == torch.float32:  # the same inputs (seed 16), timed in F32_RECORD
+                del qu, qw, k, v, p, out, got
+                lines.append(time_f32(attn, device, smi, B, H, T, Dh, "encoder form",
+                                      f"; max abs err {err:.2e} (tol {tol})"))
+                continue
+            worst = max(worst, err)
+            p1, k1, k2, p2 = (kernel_ms(plain), kernel_ms(kernel), kernel_ms(kernel),
+                              kernel_ms(plain))
             size = 4 if dtype == torch.float32 else 2
             nbytes, ops = attention_cost(B, H, T, Dh, size, size)
             bound_ms, bound_by = bound(nbytes, ops, peak)
@@ -2471,6 +2675,8 @@ def phase_diarizers(attn, i8, device, smi: str) -> tuple[dict, float, list[str]]
               f"sortformer {label}: a segment outside the recording")
         key = f"sortformer v2 {label}, {DIAR_SECONDS:.0f} s"
         paths[key] = c
+        if label == "process":  # Sortformer's config is f32: the f32 kernels' main path
+            F32_RECORD["launches"] = c["relpos_attention"]
         lines.append(time_diarizer(smi, f"{key}: {len(result.segments)} segments, launches {c} "
                                         f"(1 encoder call)", lambda: fn(audio), DIAR_SECONDS))
     chunk = sf.cfg.chunk_frames * 1280
@@ -4476,6 +4682,7 @@ def main() -> int:
         "plain_calls_by_path": {k: v["relpos_attention_plain calls"] for k, v in paths.items()
                                 if v["relpos_attention_plain calls"]},
         "max_abs_err_sortformer_shapes_bf16": diar_err,
+        "f32": F32_RECORD,
     }, {
         "name": "int8_matmul_fused",
         "route": "cuda",

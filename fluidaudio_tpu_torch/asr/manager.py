@@ -13,9 +13,10 @@ script filtering with the English blocklist (`utils/language.py`): a
 [vocab+1] bool mask of allowed tokens, built once per language.
 
 `warmup()` runs the long-form pipeline once before the first request.
-`set_mesh(None)` keeps single-device serving, as in JAX; a mesh raises
-NotImplementedError until the torch.distributed slice (ROADMAP Queue A
-item 7e).
+`set_mesh(mesh)` shards each window group over the mesh's "data" axis
+(`parallel/mesh.py`): each rank decodes its rows through the single-device
+pipeline, then the outputs are all-gathered; `set_mesh(None)` keeps
+single-device serving.
 """
 
 from __future__ import annotations

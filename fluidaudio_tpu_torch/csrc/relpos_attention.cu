@@ -65,9 +65,64 @@
 //   torch_attention_probe.py` measures its cost per tile against the
 //   tensor-core time (PERF.md).
 //
-// f32 (the small test fixtures, `relpos_attention_simt`): scalar FMAs, one
-// block per (b, h, 16-query tile), the same online softmax over 32-key
-// tiles, all in f32.
+// f32 (Sortformer, the converted f32 encoders, the f32 test fixtures): all
+// arithmetic in f32 on the FP32 pipe (TF32 failed Dh 8 in the encoders, so
+// it stays off). What bounds it: at Sortformer's offline windows (B 16, H 8,
+// T 384, Dh 64) its three products are 7.2 GFLOP, 0.108 ms at 67 TFLOP/s,
+// against 64 MB moved (0.019 ms at 3.35 TB/s); at its streaming chunks
+// (B 1024, T 6) it moves 63 MB, 0.019 ms, for 0.11 GFLOP. So long T is
+// bound by FMAs and short T by bytes, and the two get their own kernels.
+// Both are built at Dh padded to 16, 32, 64 or 128 (the copies fill the
+// columns past Dh with zeros, the stores skip them) and take the output
+// type at run time: 8 instances in all, which keeps the build short.
+//
+// `relpos_attention_simt` (T > 16): one block of 256 threads per (64 query
+// rows, h, b), key tiles of 64 (padded Dh <= 64) or 32 (padded Dh 128, to
+// fit two stages in shared memory).
+// - Register tiles. Thread (ty, tx) = (tid / 16, tid % 16) owns query rows
+//   4ty .. 4ty + 3 and keys tx + 16j of a tile, and the output columns
+//   4tx + 64c (padded Dh 64, 128) or tx + 16c. Q.K^T, the band product and
+//   P.V read shared memory as float4: per 4 head columns 4 qu rows (a
+//   broadcast in the half-warp) and 4 K rows feed 64 FMAs; per 4 keys 4
+//   probability float4s and 4 V rows feed 4 x 4 x Dh/16. Rows are padded to
+//   Dh + 4 floats, so the 8 lanes of a 16-byte load phase read 8 distinct
+//   bank groups. (Measured at T 384, against this: two rows by eight keys a
+//   thread, fewer shared-memory wavefronts but more load instructions, 20%
+//   slower; persistent blocks that copy the next tile's inputs in during
+//   the last step, no faster. It is bound by issue and latency, with one
+//   block of 8 warps an SM, more than by shared memory or its start-up.)
+// - The band. Tile kt of the 64 query rows needs p rows (T-1) + s - t, a
+//   band of 64 + keys - 1 rows; the next tile's band is this one moved on by
+//   one tile of keys. So step i computes one band chunk, qw . (p rows
+//   pbase + i * keys ..), as a plain register-tiled product, into a ring
+//   of 2 (or 3) chunks in shared memory (rows padded to 5 mod 8 floats, so
+//   the two half-warps' reads land on different banks); the first step (or
+//   two) fill the ring only. Every band value is computed once, which keeps
+//   the FMAs at the three products' count. bd[t][s] is read back from ring
+//   column (kt * keys + s - t + 63) mod ring: the XL shift as a direct
+//   index. A half-warp writes and reads only its own rows of the ring and
+//   of the probabilities, so __syncwarp orders both.
+// - Copies. K, V and the band chunk of step i + 1 are `cp.async`ed (16
+//   bytes, zero fill past T, before p row 0 and past 2T - 1) into the other
+//   of two stages while step i computes; qu and qw arrive with step 0. One
+//   barrier a step: the copies are issued after it, into the stage that
+//   every thread has left.
+// - The online softmax stays in registers (row max and sum over the 16
+//   lanes of a half-warp by shuffles), with f32 expf; the output is divided
+//   by the row sum once and stored as float4 (f32) or 4 bf16 (rounded once).
+// - Budget: 191 KB of shared memory at Dh 64 and 204 KB at Dh 128, one block
+//   (8 warps) per SM; ptxas's registers and spills are printed by
+//   `chip_smoke.py` phase 1.
+//
+// `relpos_attention_short_simt` (T <= 16): a warp per (b, h) pair, so that
+// a chunk of T 6 is not one 64-row block with 6 live rows. As many blocks of
+// two warps as fit on the card at once; each warp walks its pairs, the next
+// pair's qu, qw, k, v (T rows each) and p (2T - 1 rows) `cp.async`ed into
+// the other of its two buffers while it computes this one, so the copies
+// that bound it never stop. Per pair: every (t, s) score as two float4 dot
+// products (one score per lane), each row's softmax on one lane, and P.V
+// with lanes along Dh (V's column in registers), so that the output rows
+// leave coalesced.
 
 #include <cuda.h>  // CUtensorMap and its enums only: the library links no libcuda
 #include <cuda_bf16.h>
@@ -539,148 +594,448 @@ relpos_attention_wgmma(const __grid_constant__ CUtensorMap qu_map,
 
 // ----------------------------------------------------------------- f32 path
 
-constexpr int kTQ = 16;                    // query rows per block
-constexpr int kTK = 32;                    // key columns per inner tile
-constexpr int kGroup = 8;                  // threads that share one query row
-constexpr int kSimtThreads = kTQ * kGroup;  // 128
-constexpr int kKeysPerThread = kTK / kGroup;
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src, bool valid) {
+  // a source size of 0 reads nothing and fills the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-template <int DH>
-struct SimtSmem {
-  static constexpr int kLd = DH + 1;  // padded row stride (floats)
+// Rows r0 .. r0 + rows - 1 of an [n, cols] f32 view (rows `stride` elements
+// apart, cols contiguous) into shared memory at dst as rows of DP floats
+// (DP >= cols), ld floats apart, in 16-byte cp.async copies shared out over
+// `threads` threads; rows outside [0, n) and columns past cols arrive as
+// zeros.
+template <int DP>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, long long stride,
+                                          int r0, int rows, int n, int cols, int tid,
+                                          int threads) {
+  constexpr int kChunks = DP / 4;
+  for (int c = tid; c < rows * kChunks; c += threads) {
+    const int r = c / kChunks, q = c % kChunks, row = r0 + r;
+    const bool ok = row >= 0 && row < n && 4 * q < cols;
+    cp_async16(smem_addr(dst + r * ld + 4 * q), ok ? src + row * stride + 4 * q : src, ok);
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+__device__ __forceinline__ float lane_of(float4 a, int e) {
+  return e == 0 ? a.x : (e == 1 ? a.y : (e == 2 ? a.z : a.w));
+}
+__device__ __forceinline__ void put4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void put4(__nv_bfloat16* p, float a, float b, float c, float d) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+  uint2 bits;
+  bits.x = *reinterpret_cast<uint32_t*>(&lo);
+  bits.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = bits;
+}
+// element i of an output that is bf16 or f32 at run time: one instance of
+// each f32 kernel serves both
+__device__ __forceinline__ void put_at(void* out, bool bf16, long long i, float a) {
+  if (bf16) {
+    put(static_cast<__nv_bfloat16*>(out) + i, a);
+  } else {
+    put(static_cast<float*>(out) + i, a);
+  }
+}
+__device__ __forceinline__ void put4_at(void* out, bool bf16, long long i, float a, float b,
+                                        float c, float d) {
+  if (bf16) {
+    put4(static_cast<__nv_bfloat16*>(out) + i, a, b, c, d);
+  } else {
+    put4(static_cast<float*>(out) + i, a, b, c, d);
+  }
+}
+
+constexpr int kF32Rows = 64;      // query rows per block
+constexpr int kF32Threads = 256;  // thread (ty, tx) = (tid / kLanes, tid % kLanes)
+constexpr int kRpt = 4;           // query rows per thread: rows kRpt * ty ..
+constexpr int kLanes = 4 * kRpt;  // lanes that share rows: a warp holds 8 rows
+
+template <int D>  // D: the padded head width, 16, 32, 64 or 128
+struct F32Plan {
+  static constexpr int kKeys = D <= 64 ? 64 : 32;       // keys per tile
+  static constexpr int kKpt = kKeys / kLanes;            // keys (and band columns) per thread
+  static constexpr int kChunks = kF32Rows / kKeys + 1;   // band chunks of kKeys p rows a tile reads
+  static constexpr int kRing = kChunks * kKeys;          // band ring columns
+  static constexpr int kLd = D + 4;                      // floats per row of a Q, K, V or p tile
+  static constexpr int kLdBand = kRing + 5;              // 5 mod 8: see the header
+  static constexpr int kLdProb = kKeys + 4;
   static constexpr int kQu = 0;
-  static constexpr int kQw = kQu + kTQ * kLd;
-  static constexpr int kK = kQw + kTQ * kLd;
-  static constexpr int kV = kK + kTK * kLd;
-  static constexpr int kP = kV + kTK * kLd;
-  static constexpr int kS = kP + (kTQ + kTK - 1) * kLd;
-  static constexpr int kSLd = kTK + 1;
-  static constexpr int kFloats = kS + kTQ * kSLd;
-  static constexpr size_t kBytes = sizeof(float) * kFloats;
+  static constexpr int kQw = kQu + kF32Rows * kLd;
+  static constexpr int kStage0 = kQw + kF32Rows * kLd;  // two stages of K, V and a p chunk
+  static constexpr int kStage = 3 * kKeys * kLd;
+  static constexpr int kBand = kStage0 + 2 * kStage;
+  static constexpr int kProb = kBand + kF32Rows * kLdBand;
+  static constexpr int kBytes = 4 * (kProb + kF32Rows * kLdProb);
 };
 
-template <int DH, typename OutT>
-__global__ void __launch_bounds__(kSimtThreads)
+// g[r][j] = qw row kRpt ty + r . band row tx + kLanes j and, with kScores,
+// ac[r][j] = qu row kRpt ty + r . k row tx + kLanes j: rows of D + 4 floats
+// in shared memory, read as float4 (each load feeds 4 kKpt or 4 kRpt FMAs).
+template <int D, int kKpt, bool kScores>
+__device__ __forceinline__ void row_products(const float* qw, const float* pc, const float* qu,
+                                             const float* kt, float (&g)[kRpt][kKpt],
+                                             float (&ac)[kRpt][kKpt], int ty, int tx) {
+  constexpr int kLd = D + 4;
+#pragma unroll
+  for (int r = 0; r < kRpt; ++r) {
+#pragma unroll
+    for (int j = 0; j < kKpt; ++j) g[r][j] = ac[r][j] = 0.f;
+  }
+  // the operands of head columns d .. d + 3, loaded one step ahead of
+  // their FMAs, so that shared-memory latency hides under the products
+  float4 a[2][kRpt], c[2][kKpt], u[2][kRpt], w[2][kKpt];
+#pragma unroll
+  for (int d = 0; d < D + 4; d += 4) {
+    const int nb = (d / 4) & 1;
+    if (d < D) {
+#pragma unroll
+      for (int r = 0; r < kRpt; ++r) a[nb][r] = ld4(qw + (kRpt * ty + r) * kLd + d);
+#pragma unroll
+      for (int j = 0; j < kKpt; ++j) c[nb][j] = ld4(pc + (tx + kLanes * j) * kLd + d);
+      if constexpr (kScores) {
+#pragma unroll
+        for (int r = 0; r < kRpt; ++r) u[nb][r] = ld4(qu + (kRpt * ty + r) * kLd + d);
+#pragma unroll
+        for (int j = 0; j < kKpt; ++j) w[nb][j] = ld4(kt + (tx + kLanes * j) * kLd + d);
+      }
+    }
+    if (d > 0) {
+      const int cb = nb ^ 1;
+#pragma unroll
+      for (int r = 0; r < kRpt; ++r) {
+#pragma unroll
+        for (int j = 0; j < kKpt; ++j) g[r][j] = dot4(a[cb][r], c[cb][j], g[r][j]);
+      }
+      if constexpr (kScores) {
+#pragma unroll
+        for (int r = 0; r < kRpt; ++r) {
+#pragma unroll
+          for (int j = 0; j < kKpt; ++j) ac[r][j] = dot4(u[cb][r], w[cb][j], ac[r][j]);
+        }
+      }
+    }
+  }
+}
+
+template <int D>  // head width Dh <= D, padded with zero columns
+__global__ void __launch_bounds__(kF32Threads, 1)
 relpos_attention_simt(const float* __restrict__ qu, const float* __restrict__ qw,
                       const float* __restrict__ k, const float* __restrict__ v,
                       const float* __restrict__ p, const int* __restrict__ lengths,
-                      OutT* __restrict__ out, Strides squ, Strides sqw, Strides sk, Strides sv,
-                      Strides so, long long p_h, long long p_row, int Tlen, float scale) {
-  using L = SimtSmem<DH>;
-  constexpr int kLd = L::kLd;
-  constexpr int kDPerThread = DH / kGroup;
-  extern __shared__ float fsmem[];
-  float* sQu = fsmem + L::kQu;
-  float* sQw = fsmem + L::kQw;
-  float* sK = fsmem + L::kK;
-  float* sV = fsmem + L::kV;
-  float* sP = fsmem + L::kP;
-  float* sS = fsmem + L::kS;
+                      void* __restrict__ out, bool out_bf16, Strides squ, Strides sqw,
+                      Strides sk, Strides sv, Strides so, long long p_h, long long p_row, int T,
+                      int Dh, float scale) {
+  using L = F32Plan<D>;
+  constexpr int kKeys = L::kKeys, kKpt = L::kKpt, kChunks = L::kChunks, kLd = L::kLd;
+  constexpr int kCols = D / kLanes;  // output columns per thread
+  extern __shared__ __align__(16) float fsm[];
+  const int t0 = blockIdx.x * kF32Rows, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, ty = tid / kLanes, tx = tid % kLanes;
+  const float* const kh = k + b * sk.b + h * sk.h;
+  const float* const vh = v + b * sv.b + h * sv.h;
+  const float* const ph = p + h * p_h;
+  const int n_pos = 2 * T - 1;
+  const int valid_len = min(lengths[b], T);
+  const int n_tiles = (T + kKeys - 1) / kKeys;
+  // step i computes band chunk i and, from step kChunks - 1 on, key tile
+  // i - (kChunks - 1): the first steps fill the band ring only
+  const int n_steps = n_tiles + kChunks - 1;
+  const int pbase = (T - 1) - t0 - (kF32Rows - 1);  // p row of band column 0 in key tile 0
+  float* const band = fsm + L::kBand;
+  float* const prob = fsm + L::kProb;
 
-  const int t0 = blockIdx.x * kTQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int row = tid / kGroup;  // query row inside the tile
-  const int lane = tid % kGroup;
+  load_rows<D>(fsm + L::kQu, kLd, qu + b * squ.b + h * squ.h, squ.t, t0, kF32Rows, T, Dh, tid,
+               kF32Threads);
+  load_rows<D>(fsm + L::kQw, kLd, qw + b * sqw.b + h * sqw.h, sqw.t, t0, kF32Rows, T, Dh, tid,
+               kF32Threads);
+  auto load_step = [&](int i) {  // K and V of key tile i - (kChunks - 1), band chunk i
+    float* const st = fsm + L::kStage0 + (i & 1) * L::kStage;
+    const int kt = i - (kChunks - 1);
+    if (kt >= 0) {
+      load_rows<D>(st, kLd, kh, sk.t, kt * kKeys, kKeys, T, Dh, tid, kF32Threads);
+      load_rows<D>(st + kKeys * kLd, kLd, vh, sv.t, kt * kKeys, kKeys, T, Dh, tid, kF32Threads);
+    }
+    load_rows<D>(st + 2 * kKeys * kLd, kLd, ph, p_row, pbase + i * kKeys, kKeys, n_pos, Dh, tid,
+                 kF32Threads);
+    cp_async_commit();
+  };
 
-  const float* quh = qu + b * squ.b + h * squ.h;
-  const float* qwh = qw + b * sqw.b + h * sqw.h;
-  const float* kh = k + b * sk.b + h * sk.h;
-  const float* vh = v + b * sv.b + h * sv.h;
-  const int n_pos = 2 * Tlen - 1;
-  const float* ph = p + h * p_h;
-  const int valid_len = min(lengths[b], Tlen);
-
-  for (int i = tid; i < kTQ * DH; i += kSimtThreads) {
-    const int r = i / DH, d = i % DH, t = t0 + r;
-    sQu[r * kLd + d] = t < Tlen ? quh[t * squ.t + d] : 0.f;
-    sQw[r * kLd + d] = t < Tlen ? qwh[t * sqw.t + d] : 0.f;
+  float o[kRpt][kCols];
+  float m_run[kRpt], l_run[kRpt];
+#pragma unroll
+  for (int r = 0; r < kRpt; ++r) {
+    m_run[r] = -INFINITY;
+    l_run[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) o[r][c] = 0.f;
   }
 
-  float acc[kDPerThread];
-#pragma unroll
-  for (int j = 0; j < kDPerThread; ++j) acc[j] = 0.f;
-  float m = -INFINITY;  // running max of this query row
-  float l = 0.f;        // running softmax denominator
-
-  for (int s0 = 0; s0 < Tlen; s0 += kTK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < kTK * DH; i += kSimtThreads) {
-      const int r = i / DH, d = i % DH, s = s0 + r;
-      sK[r * kLd + d] = s < Tlen ? kh[s * sk.t + d] : 0.f;
-      sV[r * kLd + d] = s < Tlen ? vh[s * sv.t + d] : 0.f;
-    }
-    // position rows this tile reads: (T-1) + s - t for s in the key tile and
-    // t in the query tile, i.e. kTQ + kTK - 1 consecutive rows from pbase
-    const int pbase = (Tlen - 1) + s0 - (t0 + kTQ - 1);
-    for (int i = tid; i < (kTQ + kTK - 1) * DH; i += kSimtThreads) {
-      const int j = i / DH, d = i % DH, r = pbase + j;
-      sP[j * kLd + d] = (r >= 0 && r < n_pos) ? ph[r * p_row + d] : 0.f;
-    }
+  load_step(0);  // with qu and qw
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait<0>();
+    // one barrier a step: step i's copies have landed for every thread, and
+    // every thread is done with step i - 1, whose stage step i + 1 fills
     __syncthreads();
-
-    // scores of keys s0 + lane + kGroup*i for this thread's query row
-    float ac[kKeysPerThread], bd[kKeysPerThread];
+    if (i + 1 < n_steps) load_step(i + 1);
+    const float* const st = fsm + L::kStage0 + (i & 1) * L::kStage;
+    const int kt = i - (kChunks - 1);
+    float g[kRpt][kKpt], ac[kRpt][kKpt];
+    if (kt < 0) {
+      row_products<D, kKpt, false>(fsm + L::kQw, st + 2 * kKeys * kLd, nullptr, nullptr, g, ac,
+                                   ty, tx);
+    } else {
+      row_products<D, kKpt, true>(fsm + L::kQw, st + 2 * kKeys * kLd, fsm + L::kQu, st, g, ac,
+                                  ty, tx);
+    }
+    // band chunk i into ring slot i % kChunks. The thread's rows are
+    // written and read by its kLanes lanes alone, so a __syncwarp orders it.
+    const int slot = (i % kChunks) * kKeys;
 #pragma unroll
-    for (int i = 0; i < kKeysPerThread; ++i) ac[i] = bd[i] = 0.f;
-    const float* qa = sQu + row * kLd;
-    const float* qb = sQw + row * kLd;
-#pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      const float a = qa[d], c = qb[d];
+    for (int r = 0; r < kRpt; ++r) {
 #pragma unroll
-      for (int i = 0; i < kKeysPerThread; ++i) {
-        const int sl = lane + kGroup * i;
-        ac[i] = fmaf(a, sK[sl * kLd + d], ac[i]);
-        // p row of (t, s) inside the tile: (s - s0) - (t - t0) + kTQ - 1
-        bd[i] = fmaf(c, sP[(sl - row + kTQ - 1) * kLd + d], bd[i]);
+      for (int j = 0; j < kKpt; ++j) {
+        band[(kRpt * ty + r) * L::kLdBand + slot + tx + kLanes * j] = g[r][j];
       }
     }
-    float sc[kKeysPerThread];
-    float tile_max = -INFINITY;
+    __syncwarp();
+    if (kt >= 0) {
+      const int s0 = kt * kKeys;
+      // bd[t][s] is band column s - t + 63 of this tile, ring column
+      // (kt * kKeys + s - t + 63) mod kRing: the XL shift as a direct index
+      const int ring0 = (kt % kChunks) * kKeys + kF32Rows - 1;
 #pragma unroll
-    for (int i = 0; i < kKeysPerThread; ++i) {
-      const int s = s0 + lane + kGroup * i;
-      sc[i] = s >= Tlen ? -INFINITY : (s >= valid_len ? -FLT_MAX : (ac[i] + bd[i]) * scale);
-      tile_max = fmaxf(tile_max, sc[i]);
-    }
+      for (int r = 0; r < kRpt; ++r) {
+        const int t = kRpt * ty + r;
+        float tile_max = -INFINITY;
 #pragma unroll
-    for (int o = kGroup / 2; o > 0; o >>= 1)
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, o));
-    const float m_new = fmaxf(m, tile_max);
-    const float corr = expf(m - m_new);
-    float psum = 0.f;
+        for (int j = 0; j < kKpt; ++j) {
+          const int s = tx + kLanes * j;
+          int col = ring0 + s - t;
+          if (col >= L::kRing) col -= L::kRing;
+          const int sg = s0 + s;
+          // keys past T carry no weight; masked keys get f32 min like the
+          // reference (a row with no valid key averages uniformly)
+          const float bd = band[t * L::kLdBand + col];
+          const float x = sg >= T ? -INFINITY
+                                  : (sg >= valid_len ? -FLT_MAX : (ac[r][j] + bd) * scale);
+          ac[r][j] = x;
+          tile_max = fmaxf(tile_max, x);
+        }
 #pragma unroll
-    for (int i = 0; i < kKeysPerThread; ++i) {
-      const float e = expf(sc[i] - m_new);  // -inf -> 0
-      sS[row * L::kSLd + lane + kGroup * i] = e;
-      psum += e;
-    }
+        for (int off = 1; off < kLanes; off <<= 1) {
+          tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
+        }
+        const float m_new = fmaxf(m_run[r], tile_max);  // finite: key s0 < T is in the tile
+        const float corr = expf(m_run[r] - m_new);
+        m_run[r] = m_new;
+        float psum = 0.f;
 #pragma unroll
-    for (int o = kGroup / 2; o > 0; o >>= 1)
-      psum += __shfl_xor_sync(0xffffffffu, psum, o);
-    l = l * corr + psum;
-    m = m_new;
+        for (int j = 0; j < kKpt; ++j) {
+          const float e = expf(ac[r][j] - m_new);  // -inf -> 0
+          prob[t * L::kLdProb + tx + kLanes * j] = e;
+          psum += e;
+        }
 #pragma unroll
-    for (int j = 0; j < kDPerThread; ++j) acc[j] *= corr;
-    __syncwarp();  // the row's probabilities come from lanes of this warp
+        for (int off = 1; off < kLanes; off <<= 1) {
+          psum += __shfl_xor_sync(0xffffffffu, psum, off);
+        }
+        l_run[r] = l_run[r] * corr + psum;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) o[r][c] *= corr;
+      }
+      __syncwarp();  // the thread's rows of prob are written
 
-    const int n_keys = min(kTK, Tlen - s0);
-    for (int sl = 0; sl < n_keys; ++sl) {
-      const float w = sS[row * L::kSLd + sl];
-      const float* vr = sV + sl * kLd;
+      // P.V: per 4 keys, kRpt float4 of P (broadcast among the kLanes
+      // lanes) and 4 rows of V feed 4 x kRpt x kCols FMAs
+      const float* const sv_tile = st + kKeys * kLd;
 #pragma unroll
-      for (int j = 0; j < kDPerThread; ++j) acc[j] = fmaf(w, vr[lane + kGroup * j], acc[j]);
+      for (int s = 0; s < kKeys; s += 4) {
+        float4 pr[kRpt];
+#pragma unroll
+        for (int r = 0; r < kRpt; ++r) pr[r] = ld4(prob + (kRpt * ty + r) * L::kLdProb + s);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float* const vr = sv_tile + (s + e) * kLd;
+          float vv[kCols];
+          if constexpr (D % (4 * kLanes) == 0) {  // columns 4 kLanes c + 4tx .. + 3: float4
+#pragma unroll
+            for (int c = 0; c < D / (4 * kLanes); ++c) {
+              const float4 x = ld4(vr + 4 * kLanes * c + 4 * tx);
+              vv[4 * c] = x.x;
+              vv[4 * c + 1] = x.y;
+              vv[4 * c + 2] = x.z;
+              vv[4 * c + 3] = x.w;
+            }
+          } else {  // columns tx + kLanes c
+#pragma unroll
+            for (int c = 0; c < kCols; ++c) vv[c] = vr[tx + kLanes * c];
+          }
+#pragma unroll
+          for (int r = 0; r < kRpt; ++r) {
+            const float w = lane_of(pr[r], e);
+#pragma unroll
+            for (int c = 0; c < kCols; ++c) o[r][c] = fmaf(w, vv[c], o[r][c]);
+          }
+        }
+      }
     }
   }
 
-  const int t = t0 + row;
-  if (t < Tlen) {
-    const float inv = 1.f / l;
-    OutT* o = out + b * so.b + h * so.h + t * so.t;
 #pragma unroll
-    for (int j = 0; j < kDPerThread; ++j) put(o + lane + kGroup * j, acc[j] * inv);
+  for (int r = 0; r < kRpt; ++r) {
+    const int t = t0 + kRpt * ty + r;
+    if (t >= T) continue;
+    const float inv = 1.f / l_run[r];
+    const long long row = b * so.b + h * so.h + t * so.t;
+    if constexpr (D % (4 * kLanes) == 0) {  // Dh is a multiple of 16: a group of 4 is in or out
+#pragma unroll
+      for (int c = 0; c < D / (4 * kLanes); ++c) {
+        const int col = 4 * kLanes * c + 4 * tx;
+        if (col < Dh) {
+          put4_at(out, out_bf16, row + col, o[r][4 * c] * inv, o[r][4 * c + 1] * inv,
+                  o[r][4 * c + 2] * inv, o[r][4 * c + 3] * inv);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        if (tx + kLanes * c < Dh) put_at(out, out_bf16, row + tx + kLanes * c, o[r][c] * inv);
+      }
+    }
+  }
+}
+
+// short T: each warp walks (b, h) pairs, one at a time, with the next
+// pair's copy in flight
+constexpr int kShortT = 16;  // T at or below takes relpos_attention_short_simt
+constexpr int kShortWarps = 2;
+
+// floats of one pair's shared memory: qu, qw, k, v (T rows each), p (2T - 1
+// rows), the T x (T + 1) probabilities, rounded up to whole float4s
+__host__ __device__ constexpr int short_floats(int D, int T) {
+  return ((6 * T - 1) * (D + 4) + T * (T + 1) + 3) / 4 * 4;
+}
+
+template <int D>
+__device__ __forceinline__ void short_load(float* dst, const float* qu, const float* qw,
+                                           const float* k, const float* v, const float* p,
+                                           const Strides& squ, const Strides& sqw,
+                                           const Strides& sk, const Strides& sv, long long p_h,
+                                           long long p_row, int b, int h, int T, int Dh,
+                                           int lane) {
+  constexpr int kLd = D + 4;
+  load_rows<D>(dst, kLd, qu + b * squ.b + h * squ.h, squ.t, 0, T, T, Dh, lane, 32);
+  load_rows<D>(dst + T * kLd, kLd, qw + b * sqw.b + h * sqw.h, sqw.t, 0, T, T, Dh, lane, 32);
+  load_rows<D>(dst + 2 * T * kLd, kLd, k + b * sk.b + h * sk.h, sk.t, 0, T, T, Dh, lane, 32);
+  load_rows<D>(dst + 3 * T * kLd, kLd, v + b * sv.b + h * sv.h, sv.t, 0, T, T, Dh, lane, 32);
+  load_rows<D>(dst + 4 * T * kLd, kLd, p + h * p_h, p_row, 0, 2 * T - 1, 2 * T - 1, Dh, lane,
+               32);
+  cp_async_commit();
+}
+
+template <int D>  // head width Dh <= D, padded with zero columns
+__global__ void __launch_bounds__(32 * kShortWarps)
+relpos_attention_short_simt(const float* __restrict__ qu, const float* __restrict__ qw,
+                            const float* __restrict__ k, const float* __restrict__ v,
+                            const float* __restrict__ p, const int* __restrict__ lengths,
+                            void* __restrict__ out, bool out_bf16, Strides squ, Strides sqw,
+                            Strides sk, Strides sv, Strides so, long long p_h, long long p_row,
+                            int B, int H, int T, int Dh, float scale) {
+  constexpr int kLd = D + 4;
+  extern __shared__ __align__(16) float fsm[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int per = short_floats(D, T);
+  const long long pairs = static_cast<long long>(B) * H;
+  const long long stride = static_cast<long long>(gridDim.x) * kShortWarps;
+  long long pair = static_cast<long long>(blockIdx.x) * kShortWarps + warp;
+  if (pair < pairs) {
+    short_load<D>(fsm + 2 * warp * per, qu, qw, k, v, p, squ, sqw, sk, sv, p_h, p_row,
+                  static_cast<int>(pair / H), static_cast<int>(pair % H), T, Dh, lane);
+  }
+  for (int it = 0; pair < pairs; ++it, pair += stride) {  // no block-wide barrier below
+    const long long next = pair + stride;
+    if (next < pairs) {  // into the buffer that the previous pair used
+      short_load<D>(fsm + (2 * warp + ((it + 1) & 1)) * per, qu, qw, k, v, p, squ, sqw, sk, sv,
+                    p_h, p_row, static_cast<int>(next / H), static_cast<int>(next % H), T, Dh,
+                    lane);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const int b = static_cast<int>(pair / H), h = static_cast<int>(pair % H);
+    float* const sqa = fsm + (2 * warp + (it & 1)) * per;
+    float* const sqb = sqa + T * kLd;
+    float* const skk = sqb + T * kLd;
+    float* const svv = skk + T * kLd;
+    float* const spp = svv + T * kLd;
+    float* const prob = spp + (2 * T - 1) * kLd;  // row t: T values, then 1 / their sum
+
+    const int valid_len = min(lengths[b], T);
+    for (int e = lane; e < T * T; e += 32) {  // one (t, s) score per lane and pass
+      const int t = e / T, s = e % T;
+      const float* const a = sqa + t * kLd;
+      const float* const kr = skk + s * kLd;
+      const float* const w = sqb + t * kLd;
+      const float* const pr = spp + (T - 1 + s - t) * kLd;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int d = 0; d < D; d += 4) {
+        const int q = (d / 4) % 2;
+        acc[q] = dot4(ld4(a + d), ld4(kr + d), acc[q]);
+        acc[2 + q] = dot4(ld4(w + d), ld4(pr + d), acc[2 + q]);
+      }
+      const float x = ((acc[0] + acc[1]) + (acc[2] + acc[3])) * scale;
+      prob[t * (T + 1) + s] = s < valid_len ? x : -FLT_MAX;
+    }
+    __syncwarp();
+    if (lane < T) {  // row `lane`'s softmax, unnormalised
+      float* const row = prob + lane * (T + 1);
+      float m = -INFINITY;
+      for (int s = 0; s < T; ++s) m = fmaxf(m, row[s]);
+      float l = 0.f;
+      for (int s = 0; s < T; ++s) {
+        const float e = expf(row[s] - m);
+        row[s] = e;
+        l += e;
+      }
+      row[T] = 1.f / l;
+    }
+    __syncwarp();
+    const long long dst = b * so.b + h * so.h;
+    for (int c = lane; c < D; c += 32) {  // lanes along Dh: the stores leave coalesced
+      if (c >= Dh) break;
+      float vc[kShortT];
+#pragma unroll
+      for (int s = 0; s < kShortT; ++s) vc[s] = s < T ? svv[s * kLd + c] : 0.f;
+      for (int t = 0; t < T; ++t) {
+        const float* const row = prob + t * (T + 1);
+        float acc = 0.f;
+#pragma unroll
+        for (int s = 0; s < kShortT; ++s) {
+          if (s < T) acc = fmaf(row[s], vc[s], acc);
+        }
+        put_at(out, out_bf16, dst + t * so.t + c, acc * row[T]);
+      }
+    }
+    __syncwarp();  // this buffer is refilled at the next pair but one
   }
 }
 
@@ -764,52 +1119,85 @@ cudaError_t launch_wgmma(const void* qu, const void* qw, const void* k, const vo
   return cudaGetLastError();
 }
 
-template <int DH, typename OutT>
+template <int D>
 cudaError_t launch_simt(const void* qu, const void* qw, const void* k, const void* v,
-                        const void* p, const int* lengths, OutT* out, const Strides* st,
-                        long long p_h, long long p_row, int B, int H, int T, float scale,
-                        cudaStream_t stream) {
-  auto kernel = relpos_attention_simt<DH, OutT>;
-  const size_t smem = SimtSmem<DH>::kBytes;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + kTQ - 1) / kTQ, H, B);
-  kernel<<<grid, kSimtThreads, smem, stream>>>(
-      static_cast<const float*>(qu), static_cast<const float*>(qw), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(p), lengths, out, st[0], st[1],
-      st[2], st[3], st[4], p_h, p_row, T, scale);
+                        const void* p, const int* lengths, void* out, bool out_bf16,
+                        const Strides* st, long long p_h, long long p_row, int B, int H, int T,
+                        int Dh, float scale, cudaStream_t stream) {
+  const float* const a = static_cast<const float*>(qu);
+  const float* const w = static_cast<const float*>(qw);
+  const float* const kk = static_cast<const float*>(k);
+  const float* const vv = static_cast<const float*>(v);
+  const float* const pp = static_cast<const float*>(p);
+  if (T <= kShortT) {
+    auto kernel = relpos_attention_short_simt<D>;
+    const int smem = static_cast<int>(sizeof(float)) * 2 * kShortWarps * short_floats(D, T);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    int device = 0, sms = 0, per_sm = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&device);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * kShortWarps, smem);
+    }
+    if (err != cudaSuccess) return err;
+    // as many blocks as fit at once (each warp then walks its pairs), no more than the pairs
+    const long long needed = (static_cast<long long>(B) * H + kShortWarps - 1) / kShortWarps;
+    const long long resident = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
+    const long long blocks = needed < resident ? needed : resident;
+    kernel<<<static_cast<unsigned>(blocks), 32 * kShortWarps, smem, stream>>>(
+        a, w, kk, vv, pp, lengths, out, out_bf16, st[0], st[1], st[2], st[3], st[4], p_h, p_row,
+        B, H, T, Dh, scale);
+  } else {
+    auto kernel = relpos_attention_simt<D>;
+    const int smem = F32Plan<D>::kBytes;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((T + kF32Rows - 1) / kF32Rows, H, B);
+    kernel<<<grid, kF32Threads, smem, stream>>>(a, w, kk, vv, pp, lengths, out, out_bf16, st[0],
+                                                st[1], st[2], st[3], st[4], p_h, p_row, T, Dh,
+                                                scale);
+  }
   return cudaGetLastError();
 }
 
-template <typename OutT>
-cudaError_t launch(bool is_bf16, const void* qu, const void* qw, const void* k, const void* v,
-                   const void* p, const int* lengths, OutT* out, const Strides* st,
-                   long long p_h, long long p_row, int B, int H, int T, int Dh,
-                   cudaStream_t s) {
+// f32 inputs: the kernels at Dh padded to 16, 32, 64 or 128 (Dh 48 runs as
+// 64, 80-112 as 128; no model of the repo has those widths)
+cudaError_t launch_f32(const void* qu, const void* qw, const void* k, const void* v,
+                       const void* p, const int* lengths, void* out, bool out_bf16,
+                       const Strides* st, long long p_h, long long p_row, int B, int H, int T,
+                       int Dh, cudaStream_t s) {
   const float scale = 1.0f / sqrtf((float)Dh);
-  if (is_bf16) {
-    if (Dh <= 64) {
-      return launch_wgmma<64>(qu, qw, k, v, p, lengths, out, st, p_h, p_row, B, H, T, Dh, scale, s);
-    }
-    return launch_wgmma<128>(qu, qw, k, v, p, lengths, out, st, p_h, p_row, B, H, T, Dh, scale, s);
+  if (Dh <= 16) {
+    return launch_simt<16>(qu, qw, k, v, p, lengths, out, out_bf16, st, p_h, p_row, B, H, T, Dh,
+                           scale, s);
   }
-  switch (Dh) {
-#define RELPOS_SIMT_CASE(D) \
-  case D:                   \
-    return launch_simt<D>(qu, qw, k, v, p, lengths, out, st, p_h, p_row, B, H, T, scale, s);
-    RELPOS_SIMT_CASE(16)
-    RELPOS_SIMT_CASE(32)
-    RELPOS_SIMT_CASE(48)
-    RELPOS_SIMT_CASE(64)
-    RELPOS_SIMT_CASE(80)
-    RELPOS_SIMT_CASE(96)
-    RELPOS_SIMT_CASE(112)
-    RELPOS_SIMT_CASE(128)
-#undef RELPOS_SIMT_CASE
-    default:
-      return cudaErrorInvalidValue;
+  if (Dh <= 32) {
+    return launch_simt<32>(qu, qw, k, v, p, lengths, out, out_bf16, st, p_h, p_row, B, H, T, Dh,
+                           scale, s);
   }
+  if (Dh <= 64) {
+    return launch_simt<64>(qu, qw, k, v, p, lengths, out, out_bf16, st, p_h, p_row, B, H, T, Dh,
+                           scale, s);
+  }
+  return launch_simt<128>(qu, qw, k, v, p, lengths, out, out_bf16, st, p_h, p_row, B, H, T, Dh,
+                          scale, s);
+}
+
+// bf16 inputs: the wgmma kernel at Dh padded to 64 or 128
+template <typename OutT>
+cudaError_t launch_bf16(const void* qu, const void* qw, const void* k, const void* v,
+                        const void* p, const int* lengths, OutT* out, const Strides* st,
+                        long long p_h, long long p_row, int B, int H, int T, int Dh,
+                        cudaStream_t s) {
+  const float scale = 1.0f / sqrtf((float)Dh);
+  if (Dh <= 64) {
+    return launch_wgmma<64>(qu, qw, k, v, p, lengths, out, st, p_h, p_row, B, H, T, Dh, scale, s);
+  }
+  return launch_wgmma<128>(qu, qw, k, v, p, lengths, out, st, p_h, p_row, B, H, T, Dh, scale, s);
 }
 
 }  // namespace
@@ -818,6 +1206,12 @@ cudaError_t launch(bool is_bf16, const void* qu, const void* qw, const void* k, 
 // padded head width of 64 or 128.
 extern "C" int relpos_attention_smem_bytes(int dp) {
   return dp == 64 ? Layout<64>::kBytes : Layout<128>::kBytes;
+}
+
+// Dynamic shared memory the f32 kernel for T > 16 asks for at launch, in
+// bytes, at head width 64 or 128.
+extern "C" int relpos_attention_f32_smem_bytes(int dh) {
+  return dh == 64 ? F32Plan<64>::kBytes : F32Plan<128>::kBytes;
 }
 
 // Plain C entry point (loaded with ctypes). Launches on `stream`, does not
@@ -838,11 +1232,14 @@ extern "C" int relpos_attention_launch(const void* qu, const void* qw, const voi
   const long long p_h = strides[15], p_row = strides[16];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(lengths);
-  const bool bf = is_bf16 != 0;
-  if (out_is_bf16) {
-    return (int)launch(bf, qu, qw, k, v, p, lens, static_cast<__nv_bfloat16*>(out), st, p_h,
-                       p_row, B, H, T, Dh, s);
+  if (!is_bf16) {
+    return (int)launch_f32(qu, qw, k, v, p, lens, out, out_is_bf16 != 0, st, p_h, p_row, B, H, T,
+                           Dh, s);
   }
-  return (int)launch(bf, qu, qw, k, v, p, lens, static_cast<float*>(out), st, p_h, p_row, B, H,
-                     T, Dh, s);
+  if (out_is_bf16) {
+    return (int)launch_bf16(qu, qw, k, v, p, lens, static_cast<__nv_bfloat16*>(out), st, p_h,
+                            p_row, B, H, T, Dh, s);
+  }
+  return (int)launch_bf16(qu, qw, k, v, p, lens, static_cast<float*>(out), st, p_h, p_row, B, H,
+                          T, Dh, s);
 }

@@ -1,13 +1,15 @@
-"""FastConformer encoder (NeMo-style, full context) as torch modules.
+"""FastConformer encoder (NeMo-style, full or limited context) as torch modules.
 
-Port of `fluidaudio_tpu/models/conformer.py` for the full-context models:
+Port of `fluidaudio_tpu/models/conformer.py`'s offline encoder:
   - 8x depthwise-separable striding subsampling (3 conv stages, stride 2 each)
   - N conformer blocks: 0.5*FFN -> rel-pos MHSA -> conv module -> 0.5*FFN -> LN
   - Transformer-XL relative positional multi-head attention through
     `ops.attention.relpos_attention` (the CUDA kernel on a GPU) or
     `relpos_attention_plain` on the tensors' own device, chosen by
     `ConformerEncoder.attention_route` before any launch, as the JAX encoder
-    branches between its Pallas and einsum paths
+    branches between its Pallas and einsum paths; a limited attention
+    context (`att_context_left/right`, e.g. `EOU_120M`) takes the plain
+    version over its band, as JAX takes its einsum path under the mask
   - conv module: LN -> pointwise(2d, GLU) -> depthwise(k) -> BN -> SiLU -> pointwise
 
 The forward is differentiable: serving callers run it under `torch.no_grad`
@@ -29,6 +31,7 @@ whose f32 scales and biases survive the cast to the compute dtype.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Callable
@@ -58,9 +61,10 @@ class ConformerConfig:
     subsampling_factor: int = 8  # the three stride-2 convolutions (as in JAX, not read)
     subsampling_channels: int = 256
     dropout: float = 0.0  # inference default (as in JAX, not read)
-    # limited attention context in frames, -1 = full; the offline encoder
-    # takes full context only (`ConformerEncoder` refuses a limit); the
-    # cache-aware streaming encoder is models/conformer_streaming.py
+    # limited attention context in frames, -1 = full: the offline encoder
+    # masks keys outside [t - left, t + right] (the plain attention, as JAX
+    # takes its einsum path there); the cache-aware streaming encoder is
+    # models/conformer_streaming.py
     att_context_left: int = -1
     att_context_right: int = -1
     dtype: str = "bfloat16"  # compute dtype
@@ -156,8 +160,9 @@ def rel_sinusoid(T: int, d_model: int, device=None) -> torch.Tensor:
 
 
 class RelPosMHSA(nn.Module):
-    """Transformer-XL relative positional multi-head self-attention, full
-    context with per-row key lengths (the JAX package's Pallas branch)."""
+    """Transformer-XL relative positional multi-head self-attention with
+    per-row key lengths; the attention function (the encoder's route) holds
+    any limit on the context."""
 
     def __init__(self, cfg: ConformerConfig, device=None):
         super().__init__()
@@ -259,10 +264,6 @@ class ConformerEncoder(nn.Module):
 
     def __init__(self, cfg: ConformerConfig, device=None):
         super().__init__()
-        if cfg.att_context_left >= 0 or cfg.att_context_right >= 0:
-            raise NotImplementedError(
-                "limited attention context in the offline encoder is not ported; the "
-                "streaming encoder is models/conformer_streaming.StreamingConformerEncoder")
         if cfg.attention_backend not in ("auto", "xla"):
             raise ValueError(
                 f"attention_backend must be 'auto' or 'xla', got {cfg.attention_backend!r}")
@@ -272,11 +273,19 @@ class ConformerEncoder(nn.Module):
             self.add_module(f"block{i}", ConformerBlock(cfg, device))
         self.to(cfg.compute_dtype)
 
+    @property
+    def limited_context(self) -> bool:
+        return self.cfg.att_context_left >= 0 or self.cfg.att_context_right >= 0
+
     def attention_route(self, mel: torch.Tensor) -> AttentionFn | None:
         """The attention path for a forward on `mel`, decided before any
         launch, as JAX's encoder decides on its config (it is a branch, never
         a fallback on failure):
 
+        - Limited context (`att_context_left` or `att_context_right` >= 0):
+          `relpos_attention_plain` over the band, with any backend and with
+          or without a gradient (JAX's `use_pallas` excludes limited
+          context, so its einsum path runs under the band mask).
         - `"xla"`: `relpos_attention_plain` at every head width (JAX's
           einsum path, differentiable).
         - `"auto"` with no gradient needed (grad mode off, or neither `mel`
@@ -290,6 +299,9 @@ class ConformerEncoder(nn.Module):
           `attention_backend="xla"`.
         """
         cfg = self.cfg
+        if self.limited_context:
+            return functools.partial(relpos_attention_plain,
+                                     context=(cfg.att_context_left, cfg.att_context_right))
         if cfg.attention_backend == "xla":
             return relpos_attention_plain
         needs_grad = torch.is_grad_enabled() and (
@@ -307,10 +319,14 @@ class ConformerEncoder(nn.Module):
                 attention: AttentionFn | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """`attention=None` takes `attention_route(mel)`; a caller may pass
-        the kernel's wrapper or the plain version to compare the two."""
+        the kernel's wrapper or the plain version to compare the two, at full
+        context only (neither takes the band)."""
         cfg = self.cfg
         if attention is None:
             attention = self.attention_route(mel)
+        elif self.limited_context:
+            raise ValueError("limited attention context takes the plain attention over its "
+                             "band (attention_route); pass attention=None")
         x = self.subsampling(mel)
         if cfg.xscale:
             x = x * math.sqrt(cfg.d_model)

@@ -41,22 +41,36 @@ def kernel_takes_head_dim(head_dim: int) -> bool:
 
 
 def relpos_attention_plain(qu, qw, k, v, p, lengths, t_real: int, *,
-                           out: torch.Tensor | None = None) -> torch.Tensor:
+                           out: torch.Tensor | None = None,
+                           context: tuple[int, int] | None = None) -> torch.Tensor:
     """Plain torch version with the kernel's semantics, computed in f32;
     with `out=` the result is copied there (`out.copy_`) and `out` returned.
-    Runs on the tensors' own device and counts its calls in `.calls`."""
+    Runs on the tensors' own device and counts its calls in `.calls`.
+
+    `context=(left, right)` is the offline encoder's limited attention
+    context, which only this version takes (JAX's encoder takes its einsum
+    path there, never Pallas): query t sees key s only if s - t >= -left
+    (when left >= 0) and s - t <= right (when right >= 0), on top of the
+    key lengths."""
     relpos_attention_plain.calls += 1
     B, H, T, Dh = qu.shape
     f32 = torch.float32
     ac = torch.einsum("bhtd,bhsd->bhts", qu.to(f32), k.to(f32))
     # XL shift as an explicit gather: bd[t, s] = raw[t, (t_real-1) + (s - t)]
     ar = torch.arange(T, device=qu.device)
-    r = ar[None, :] - ar[:, None] + (t_real - 1)
+    rel = ar[None, :] - ar[:, None]  # s - t
+    r = rel + (t_real - 1)
     pr = torch.einsum("bhtd,hrd->bhtr", qw.to(f32), p.to(f32))
     bd = torch.take_along_dim(pr, r.expand(B, H, T, T), dim=-1)
     scores = (ac + bd) / math.sqrt(Dh)
     limit = torch.clamp(lengths.to(torch.int64), max=t_real)
     valid = ar[None, None, None, :] < limit[:, None, None, None]
+    if context is not None:
+        left, right = context
+        if left >= 0:
+            valid = valid & (rel >= -left)
+        if right >= 0:
+            valid = valid & (rel <= right)
     scores = torch.where(valid, scores, torch.finfo(f32).min)
     probs = torch.softmax(scores, dim=-1)
     result = torch.einsum("bhts,bhsd->bhtd", probs, v.to(f32))
@@ -76,8 +90,9 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.relpos_attention_smem_bytes.argtypes = [ctypes.c_int]
-    lib.relpos_attention_smem_bytes.restype = ctypes.c_int
+    for name in ("relpos_attention_smem_bytes", "relpos_attention_f32_smem_bytes"):
+        getattr(lib, name).argtypes = [ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 

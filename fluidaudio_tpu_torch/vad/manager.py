@@ -22,9 +22,9 @@ probabilities and the final states back.
 Weights: `checkpoint_dir` holds `silero_vad.npz`; `checkpoint_dir=None`
 reads the model cache's `Repo.VAD` folder, as JAX does; with no checkpoint
 the weights are seeded random (with a warning), drawn on `device`.
-`device=None` is the GPU; pass "cpu" to run on the CPU. `set_mesh(None)` is
-a no-op; a mesh raises NotImplementedError (torch.distributed serving is
-ROADMAP Queue A item 7).
+`device=None` is the GPU; pass "cpu" to run on the CPU. `set_mesh(mesh)`
+shards batch VAD over the mesh's "data" axis (each rank's rows through the
+frame program, then an all-gather); `set_mesh(None)` keeps one device.
 """
 
 from __future__ import annotations

@@ -213,6 +213,69 @@ def test_xla_backend_equals_jax_xla_encoder(monkeypatch):
         port.ConformerEncoder(port.ConformerConfig(**DH128, attention_backend="pallas"))
 
 
-def test_limited_context_is_refused_by_the_offline_encoder():
-    with pytest.raises(NotImplementedError, match="conformer_streaming"):
-        port.ConformerEncoder(port.EOU_120M)
+# (left, right) frames of limited attention context: EOU_120M's (70, 0) at
+# T' 76 > 70, so the left limit bites, and two narrow bands
+CONTEXTS = [(70, 0), (2, 1), (3, 0)]
+
+
+@pytest.mark.parametrize("left,right", CONTEXTS)
+def test_limited_context_encoder_matches_jax(left, right, monkeypatch):
+    """JAX's offline encoder masks keys outside [t - left, t + right] and
+    takes its einsum path there; the port routes limited context to the
+    plain attention over the same band, never to the kernel's wrapper (None
+    here), one call per layer. Valid rows equal JAX's at
+    `test_encoder_matches_jax`'s tolerance; the padded rows are zero; the
+    full-context encoder on the same parameters differs, so the band is
+    what is held."""
+    cfg = dict(TINY, att_context_left=left, att_context_right=right)
+    mel = _mel(3, 601, seed=5)
+    lengths = np.array([601, 350, 130], np.int32)
+    params = _perturbed_init(cfg, mel, lengths)
+    monkeypatch.setattr(port, "relpos_attention", None)
+    plain_before = port.relpos_attention_plain.calls
+    want, want_len, got, got_len = _both(cfg, params, mel, lengths)
+    assert port.relpos_attention_plain.calls == plain_before + TINY["n_layers"]
+    np.testing.assert_array_equal(got_len, want_len)
+    assert got.shape[1] == 76 and got_len.tolist() == [76, 44, 17]
+    full, _ = jax_conformer.ConformerEncoder(jax_conformer.ConformerConfig(**TINY)).apply(
+        params, jnp.asarray(mel), jnp.asarray(lengths))
+    for b, n in enumerate(got_len):
+        np.testing.assert_allclose(got[b, :n], want[b, :n], atol=1e-3, rtol=1e-3)
+        assert not got[b, n:].any()
+    assert np.abs(np.asarray(full)[0] - want[0]).max() > 0.1
+
+
+@pytest.mark.parametrize("backend", ["auto", "xla"])
+def test_limited_context_route_is_the_plain_band(backend, monkeypatch):
+    """The route is decided before any launch: limited context takes the
+    plain attention over the band with either backend, served under
+    `no_grad` and trained under autograd alike (the same output), and at
+    Dh 128 on the card under a gradient too, where full context raises
+    (JAX's `use_pallas` excludes limited context). An explicit attention
+    function is refused: neither the kernel nor a bare plain call takes
+    the band."""
+    cfg = port.ConformerConfig(**TINY, att_context_left=3, att_context_right=0,
+                               attention_backend=backend)
+    enc = port.ConformerEncoder(cfg)
+    mel = torch.from_numpy(_mel(2, 161, seed=6))
+    lengths = torch.tensor([161, 90], dtype=torch.int32)
+    monkeypatch.setattr(port, "relpos_attention", None)
+    route = enc.attention_route(mel)  # a gradient is needed: the parameters require it
+    assert route.func is port.relpos_attention_plain and route.keywords == {"context": (3, 0)}
+    with torch.no_grad():
+        served, _ = enc(mel, lengths)
+    trained, _ = enc(mel, lengths)
+    trained.sum().backward()
+    assert enc.block0.mhsa.q.weight.grad is not None
+    torch.testing.assert_close(trained.detach(), served, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="attention=None"):
+        enc(mel, lengths, attention=port.relpos_attention_plain)
+
+    card_mel = torch.empty(1, 128, 161, device="meta", requires_grad=True)
+    wide = dict(DH128, attention_backend=backend)
+    limited = port.ConformerEncoder(port.ConformerConfig(**wide, att_context_left=70,
+                                                         att_context_right=0))
+    assert limited.attention_route(card_mel).func is port.relpos_attention_plain
+    if backend == "auto":
+        with pytest.raises(ValueError, match="xla"):
+            port.ConformerEncoder(port.ConformerConfig(**wide)).attention_route(card_mel)

@@ -45,6 +45,14 @@ def _inputs(B, H, T, Dh, dtype, device, seed=0, scale=1.0):
     (1, 1, 5, 32, torch.float32, [0]),  # every key masked: uniform average
     (3, 4, 47, 16, torch.bfloat16, [47, 20, 0]),
     (2, 3, 70, 48, torch.bfloat16, [1, 65]),
+    # f32: the short-T kernel (T <= 16) and the tiled one on each side of it,
+    # Sortformer's shapes, ragged lengths with 0
+    (3, 2, 1, 16, torch.float32, [1, 0, 1]),
+    (4, 8, 6, 64, torch.float32, [6, 3, 0, 1]),
+    (2, 2, 16, 128, torch.float32, [16, 9]),
+    (2, 2, 17, 80, torch.float32, [17, 0]),
+    (2, 3, 33, 112, torch.float32, [33, 32]),
+    (2, 8, 384, 64, torch.float32, [384, 129]),
 ])
 def test_kernel_matches_plain(cuda, B, H, T, Dh, dtype, lengths):
     """Same inputs, f32 scores and softmax on both sides. f32: only summation
@@ -81,6 +89,8 @@ def _strided_inputs(B, H, T, Dh, dtype, device, seed=0):
     (3, 4, 47, 16, torch.bfloat16, [47, 20, 1]),
     (2, 4, 47, 16, torch.float32, [47, 20]),  # the trained test-tiny head width
     (2, 3, 70, 48, torch.float32, [0, 65]),
+    (4, 8, 6, 64, torch.float32, [6, 0, 2, 5]),  # Sortformer's streaming chunks
+    (2, 8, 384, 64, torch.float32, [384, 65]),  # Sortformer's offline windows
 ])
 def test_kernel_on_strided_views_and_out(cuda, B, H, T, Dh, dtype, lengths):
     """Strided inputs and the [B, H, T, Dh] view of a [B, T, H, Dh] buffer as
