@@ -1,0 +1,9 @@
+"""Share of the profiled sub-window in which no kernel or copy ran on the
+card (raw kineto events), in %."""
+
+
+def read(run):
+    p = run.profile
+    if not p or p["window_s"] <= 0 or p["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - p["busy_s"] / p["window_s"])
