@@ -60,6 +60,7 @@ from fluidaudio_tpu_torch.parallel.mesh import axis_size, gather_rows, local_row
 from fluidaudio_tpu_torch.registry import DownloadUtils, Repo
 from fluidaudio_tpu_torch.utils.device import resolve_device
 from fluidaudio_tpu_torch.utils.logging import get_logger
+from fluidaudio_tpu_torch.utils.profiling import span
 
 logger = get_logger("diarizer.sortformer")
 
@@ -112,8 +113,9 @@ class SortformerDiarizer:
         """Raw chunk buffers [N, chunk_samples] on the device -> batched mel ->
         batched encoder -> the stateful step over the first `n_steps` chunks
         -> (preds [n_steps, chunk_frames, 4], state), all on the device."""
-        mel, _ = self.mel(chunk_audio)  # [N, n_mels, T] rows independent
-        mel = mel[:, :, : self.cfg.chunk_frames * 8]
+        with span("mel", device=chunk_audio.device):
+            mel, _ = self.mel(chunk_audio)  # [N, n_mels, T] rows independent
+            mel = mel[:, :, : self.cfg.chunk_frames * 8]
         return streaming_scan_program(self.model, mel, state, self.cfg, n_steps, self._step)
 
     @torch.no_grad()
@@ -123,12 +125,13 @@ class SortformerDiarizer:
         -> overlapped windows by reshape/slice -> batched mel -> one
         encoder+transformer pass -> preds [n_windows, 384, 4]."""
         overlap = window_samples - step
-        x = flat.float()
-        if not flat.is_floating_point():
-            x = x / 32768.0
-        base = x[: n_windows * step].reshape(n_windows, step)
-        tails = x[step : (n_windows + 1) * step].reshape(n_windows, step)[:, :overlap]
-        mel, _ = self.mel(torch.cat([base, tails], dim=1))
+        with span("mel", device=flat.device):
+            x = flat.float()
+            if not flat.is_floating_point():
+                x = x / 32768.0
+            base = x[: n_windows * step].reshape(n_windows, step)
+            tails = x[step : (n_windows + 1) * step].reshape(n_windows, step)[:, :overlap]
+            mel, _ = self.mel(torch.cat([base, tails], dim=1))
         return self.model(mel[:, :, :OFFLINE_WINDOW_MEL])
 
     # -------------------------------------------------------------- streaming
@@ -271,49 +274,61 @@ class SortformerDiarizer:
         """Fused 30.72 s windows + speaker stitching across windows: ALL of a
         recording's windows run as one batched device pass (window count
         bucketed to powers of two) instead of the reference's two CoreML
-        dispatches per window (`OfflineSortformerDiarizer.swift:215`)."""
+        dispatches per window (`OfflineSortformerDiarizer.swift:215`).
+
+        Spans (`utils/profiling.py`, while a profiler records): `diar.request`
+        (counts `audio_s`, `windows`, `bucket_rows`) holding `diar.plan`,
+        `diar.upload` (`bytes`), `mel`, `encoder`, `sortformer.head`,
+        `diar.download`, `diar.stitch` and `diar.segments`."""
         t0 = time.perf_counter()
-        samples = np.asarray(samples).reshape(-1)
-        if samples.dtype not in (np.float32, np.int16):
-            samples = samples.astype(np.float32)
-        window_samples = OFFLINE_WINDOW_MEL * 160
-        overlap_frames = 64  # ~5 s of 80 ms frames for identity matching
-        step = window_samples - overlap_frames * 1280
+        with span("diar.request") as request:
+            with span("diar.plan"):
+                samples = np.asarray(samples).reshape(-1)
+                if samples.dtype not in (np.float32, np.int16):
+                    samples = samples.astype(np.float32)
+                window_samples = OFFLINE_WINDOW_MEL * 160
+                overlap_frames = 64  # ~5 s of 80 ms frames for identity matching
+                step = window_samples - overlap_frames * 1280
 
-        starts: list[int] = []
-        sizes: list[int] = []
-        for start in range(0, max(1, samples.size), max(1, step)):
-            seg_size = max(0, min(samples.size - start, window_samples))
-            if seg_size < 16000 and starts:
-                break
-            starts.append(start)
-            sizes.append(seg_size)
-            if start + window_samples >= samples.size:
-                break
+                starts: list[int] = []
+                sizes: list[int] = []
+                for start in range(0, max(1, samples.size), max(1, step)):
+                    seg_size = max(0, min(samples.size - start, window_samples))
+                    if seg_size < 16000 and starts:
+                        break
+                    starts.append(start)
+                    sizes.append(seg_size)
+                    if start + window_samples >= samples.size:
+                        break
 
-        W = len(starts)
-        bucket = 1 << (W - 1).bit_length()
-        rows = slice(0, bucket)
-        if self._mesh is not None:
-            n_data = axis_size(self._mesh, "data")
-            bucket = -(-bucket // n_data) * n_data
-            rows = local_rows(self._mesh, bucket)
-        flat = np.zeros((bucket + 1) * step, samples.dtype)
-        flat[: min(samples.size, flat.size)] = samples[: flat.size]
-        # windows rows.start .. rows.stop - 1 read flat[start * step : (stop + 1) * step]
-        mine = torch.from_numpy(flat[rows.start * step:(rows.stop + 1) * step]).to(self.device)
-        preds = self.offline_windows(mine, rows.stop - rows.start, step, window_samples)
-        if self._mesh is not None:
-            preds = gather_rows(self._mesh, preds)
-        preds_all = preds.cpu().numpy()
+                W = len(starts)
+                bucket = 1 << (W - 1).bit_length()
+                rows = slice(0, bucket)
+                if self._mesh is not None:
+                    n_data = axis_size(self._mesh, "data")
+                    bucket = -(-bucket // n_data) * n_data
+                    rows = local_rows(self._mesh, bucket)
+                flat = np.zeros((bucket + 1) * step, samples.dtype)
+                flat[: min(samples.size, flat.size)] = samples[: flat.size]
+                # windows rows.start .. rows.stop - 1 read flat[start * step : (stop + 1) * step]
+                mine = flat[rows.start * step:(rows.stop + 1) * step]
+            request.set(audio_s=samples.size / SAMPLE_RATE, windows=W, bucket_rows=bucket)
+            with span("diar.upload", device=self.device, bytes=mine.nbytes):
+                mine = torch.from_numpy(mine).to(self.device)
+            preds = self.offline_windows(mine, rows.stop - rows.start, step, window_samples)
+            if self._mesh is not None:
+                preds = gather_rows(self._mesh, preds)
+            with span("diar.download"):
+                preds_all = preds.cpu().numpy()
 
-        windows = []
-        for i, (start, size) in enumerate(zip(starts, sizes)):
-            n_valid = min(preds_all.shape[1], int(np.ceil(size / 1280)))
-            windows.append((start // 1280, preds_all[i, :n_valid]))
-
-        stitched = self._stitch(windows)
-        segments = self._preds_to_segments(stitched)
+            with span("diar.stitch"):
+                windows = []
+                for i, (start, size) in enumerate(zip(starts, sizes)):
+                    n_valid = min(preds_all.shape[1], int(np.ceil(size / 1280)))
+                    windows.append((start // 1280, preds_all[i, :n_valid]))
+                stitched = self._stitch(windows)
+            with span("diar.segments"):
+                segments = self._preds_to_segments(stitched)
         timings = PipelineTimings(total_seconds=time.perf_counter() - t0)
         return DiarizationResult(
             segments=segments,

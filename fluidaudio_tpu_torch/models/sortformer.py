@@ -20,6 +20,8 @@ to the lower index as `jax.lax.top_k`'s do (the invalid slots all tie at
 -1.0). `streaming_scan_program` encodes every chunk of a recording in one
 batched call and loops the stateful step over them; on the GPU the step is
 a CUDA graph (`StepProgram`), as JAX runs it inside one `lax.scan`.
+The encoder call and the head after it (encoder_proj onward) are the spans
+`encoder` and `sortformer.head` (`utils/profiling.py`).
 
 Module and parameter names mirror the flax tree (`tf0.q.weight`,
 `encoder.block0...`), so `utils.weights.load_npz` maps the JAX package's npz.
@@ -37,6 +39,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from fluidaudio_tpu_torch.models.conformer import ConformerConfig, ConformerEncoder
+from fluidaudio_tpu_torch.utils.profiling import span
 
 NUM_SPEAKERS = 4
 FRAME_SECONDS = 0.08  # 80 ms encoder frames
@@ -186,13 +189,18 @@ class SortformerModel(nn.Module):
         self.head = nn.Linear(cfg.d_model, NUM_SPEAKERS, device=device)
         self.to(cfg.compute_dtype)
 
+    def _encode(self, mel: torch.Tensor) -> torch.Tensor:
+        """mel [B, n_mels, T_mel] -> encoder output [B, T_mel//8, encoder_d_model]."""
+        B, _, T_mel = mel.shape
+        lengths = torch.full((B,), T_mel, dtype=torch.int32, device=mel.device)
+        with span("encoder", device=mel.device):
+            enc, _ = self.encoder(mel, lengths)
+        return enc.to(self.cfg.compute_dtype)
+
     @torch.no_grad()
     def encode_frames(self, mel: torch.Tensor) -> torch.Tensor:
         """mel [B, n_mels, T_mel] -> frames [B, T_mel//8, d_model]."""
-        B, _, T_mel = mel.shape
-        lengths = torch.full((B,), T_mel, dtype=torch.int32, device=mel.device)
-        enc, _ = self.encoder(mel, lengths)
-        return self.encoder_proj(enc.to(self.cfg.compute_dtype))
+        return self.encoder_proj(self._encode(mel))
 
     @torch.no_grad()
     def predict(self, context: torch.Tensor, context_mask: torch.Tensor) -> torch.Tensor:
@@ -207,9 +215,11 @@ class SortformerModel(nn.Module):
     @torch.no_grad()
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         """Offline fused pass: mel [B, n_mels, T] -> preds [B, T//8, 4]."""
-        frames = self.encode_frames(mel)
-        B, T, _ = frames.shape
-        return self.predict(frames, torch.ones((B, T), dtype=torch.bool, device=frames.device))
+        enc = self._encode(mel)
+        with span("sortformer.head", device=mel.device):
+            frames = self.encoder_proj(enc)
+            B, T, _ = frames.shape
+            return self.predict(frames, torch.ones((B, T), dtype=torch.bool, device=frames.device))
 
 
 def streaming_step(model: SortformerModel, mel_chunk: torch.Tensor, state: SortformerState,
@@ -239,9 +249,11 @@ def streaming_scan_program(model: SortformerModel, mel_chunks: torch.Tensor,
 
     Returns (preds [n_steps, chunk_frames, 4], final state).
     """
-    frames_all = model.encode_frames(mel_chunks)  # [N, T, D]
-    n = frames_all.shape[0] if n_steps is None else n_steps
-    return (program or StepProgram(model, cfg)).scan(frames_all, state, n)
+    enc = model._encode(mel_chunks)
+    with span("sortformer.head", device=mel_chunks.device):
+        frames_all = model.encoder_proj(enc)  # [N, T, D]
+        n = frames_all.shape[0] if n_steps is None else n_steps
+        return (program or StepProgram(model, cfg)).scan(frames_all, state, n)
 
 
 class StepProgram:

@@ -20,7 +20,6 @@ from fluidaudio_tpu_torch.native import sysinfo as port_sysinfo
 from fluidaudio_tpu_torch.ops.build import BUILD_DIR
 from fluidaudio_tpu_torch.utils import profiling
 from fluidaudio_tpu_torch.utils.system_info import SystemInfo
-from fluidaudio_tpu_torch.utils.timing import StageTimer
 from tests.test_torch_custom_vocab import jax_cases, one_torch_thread  # noqa: F401
 
 NATIVE_EDITS = (
@@ -139,25 +138,44 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert any("mm" in e.get("name", "") for e in trace["traceEvents"])
 
 
-def test_signpost_adds_a_stage():
-    timer = StageTimer()
-    with profiling.signpost(timer, "enc"):
+def test_span_records_a_stage_under_the_profiler():
+    """`span`, which took `signpost`'s place: a stage interval recorded while
+    a profiler records, and nothing recorded outside one."""
+    profiling.reset()
+    with profiling.span("enc"):
         torch.ones(8).sum()
-    with profiling.signpost(timer, "enc", block=False):
-        pass
-    assert list(timer.stages) == ["enc"] and timer.stages["enc"] > 0
+    assert profiling.spans() == []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with profiling.span("enc"):
+            torch.ones(8).sum()
+    (rec,) = profiling.spans()
+    assert rec.name == "enc" and rec.host_s > 0
+    assert profiling.summary()["enc"]["host_s"] == rec.host_s
+    profiling.reset()
 
 
-def test_signpost_synchronises_the_card(monkeypatch):
-    calls = []
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+def test_span_does_not_synchronise_the_card(monkeypatch):
+    """Where `signpost` synchronised the card at each stage end, a span on a
+    CUDA device records two events and syncs nothing."""
+    calls, made = [], []
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            made.append(enable_timing)
+
+        def record(self, stream=None):
+            pass
+
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: calls.append(a))
-    timer = StageTimer()
-    with profiling.signpost(timer, "dec"):
-        pass
-    with profiling.signpost(timer, "dec", block=False):
-        pass
-    assert calls == [()] and "dec" in timer.stages
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with profiling.span("dec", device="cuda"):
+            pass
+    assert calls == [] and made == [True, True]
+    assert [r.name for r in profiling.spans()] == ["dec"]
+    profiling.reset()
 
 
 def test_device_memory_stats_per_device(monkeypatch):
