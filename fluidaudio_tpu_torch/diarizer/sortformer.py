@@ -12,10 +12,13 @@ identity matching across windows).
   stateful transformer + cache update loops over the real chunks on the
   device with no host sync, and the predictions come back in one copy.
 - `process_offline`: the recording goes to the device flat (int16 stays
-  int16 until the device, halving the copy), the overlapping 30.72 s windows
-  are cut there by reshape/slice, and mel + encoder + transformer run as one
-  batched pass over all windows (bucketed to a power of two); the host
-  stitches the windows' speaker slots (overlap correlation + Hungarian).
+  int16 until the device, halving the copy): its samples are copied into a
+  staging buffer the diarizer reuses (page-locked on a card, so the upload
+  is an asynchronous DMA of the real samples alone), and the bucket's tail
+  is zeroed on the device. The overlapping 30.72 s windows are cut there by
+  reshape/slice, and mel + encoder + transformer run as one batched pass
+  over all windows (bucketed to a power of two); the host stitches the
+  windows' speaker slots (overlap correlation + Hungarian).
 - `process_chunk` / `process_stream` / `enroll_speaker`: the live session,
   one chunk step per call.
 
@@ -96,6 +99,10 @@ class SortformerDiarizer:
         self._session_frames = 0
         self._slot_names: dict[int, str] = {}
         self._mesh = None  # `set_mesh`
+        # `process_offline`'s host side of the upload (`_stage`): bytes, reused
+        # across requests and never shrunk; the event marks its last copy out
+        self._staging: torch.Tensor | None = None
+        self._staged: torch.cuda.Event | None = None
 
     def set_mesh(self, mesh) -> None:
         """Enable (or with None disable) mesh-sharded offline diarization:
@@ -278,7 +285,8 @@ class SortformerDiarizer:
 
         Spans (`utils/profiling.py`, while a profiler records): `diar.request`
         (counts `audio_s`, `windows`, `bucket_rows`) holding `diar.plan`,
-        `diar.upload` (`bytes`), `mel`, `encoder`, `sortformer.head`,
+        `diar.upload` (`bytes` of real samples uploaded, `pinned`,
+        `staging_grown`), `mel`, `encoder`, `sortformer.head`,
         `diar.download`, `diar.stitch` and `diar.segments`."""
         t0 = time.perf_counter()
         with span("diar.request") as request:
@@ -308,13 +316,21 @@ class SortformerDiarizer:
                     n_data = axis_size(self._mesh, "data")
                     bucket = -(-bucket // n_data) * n_data
                     rows = local_rows(self._mesh, bucket)
-                flat = np.zeros((bucket + 1) * step, samples.dtype)
-                flat[: min(samples.size, flat.size)] = samples[: flat.size]
-                # windows rows.start .. rows.stop - 1 read flat[start * step : (stop + 1) * step]
-                mine = flat[rows.start * step:(rows.stop + 1) * step]
+                # windows rows.start .. rows.stop - 1 read the recording zero-padded
+                # to (bucket + 1) * step samples, at [start * step : (stop + 1) * step]
+                lo, hi = rows.start * step, (rows.stop + 1) * step
+                real = samples[lo:hi]
+                staged, grown = self._stage(real, (hi - lo) * samples.itemsize)
             request.set(audio_s=samples.size / SAMPLE_RATE, windows=W, bucket_rows=bucket)
-            with span("diar.upload", device=self.device, bytes=mine.nbytes):
-                mine = torch.from_numpy(mine).to(self.device)
+            pinned = self.device.type == "cuda"
+            with span("diar.upload", device=self.device, bytes=real.nbytes,
+                      pinned=int(pinned), staging_grown=int(grown)):
+                mine = torch.empty(hi - lo, dtype=staged.dtype, device=self.device)
+                mine[: real.size].copy_(staged, non_blocking=pinned)
+                mine[real.size:].zero_()
+                if pinned:
+                    self._staged = torch.cuda.Event()
+                    self._staged.record(torch.cuda.current_stream(self.device))
             preds = self.offline_windows(mine, rows.stop - rows.start, step, window_samples)
             if self._mesh is not None:
                 preds = gather_rows(self._mesh, preds)
@@ -335,6 +351,24 @@ class SortformerDiarizer:
             speaker_count=len({s.speaker_id for s in segments}),
             timings=timings,
         )
+
+    def _stage(self, real: np.ndarray, capacity: int) -> tuple[torch.Tensor, bool]:
+        """Copy `real` into the staging buffer, first grown to `capacity`
+        bytes if it holds fewer (the bucket's whole span, so that every later
+        request of a bucket already seen fits) -> (the staged samples as a
+        tensor of their dtype, whether it grew). On a card the buffer is
+        page-locked, and the write waits for the last upload out of it."""
+        if self._staged is not None:
+            self._staged.synchronize()
+            self._staged = None
+        grown = self._staging is None or self._staging.numel() < capacity
+        if grown:
+            self._staging = torch.empty(capacity, dtype=torch.uint8,
+                                        pin_memory=self.device.type == "cuda")
+        src = torch.from_numpy(real)
+        # torch copies on its intra-op threads, numpy on one (PERF.md §6)
+        staged = self._staging[: real.nbytes].view(src.dtype).copy_(src)
+        return staged, grown
 
     def _stitch(self, windows: list[tuple[int, np.ndarray]]) -> np.ndarray:
         """Permute each window's speaker slots to match the accumulated

@@ -10,7 +10,8 @@
 - `trace()` merges the spans into its Chrome trace, and `trace(None)`
   writes a new directory on each call.
 - `SortformerDiarizer.process_offline` at SORTFORMER_TEST: the nine spans
-  once per request, with its own plan's window and bucket counts, and the
+  once per request, with its own plan's window and bucket counts, the
+  upload's real bytes, `pinned` (0 on the CPU) and `staging_grown`, and the
   request's host time split exactly into self times.
 """
 
@@ -215,7 +216,10 @@ def test_process_offline_spans(diarizer, monkeypatch):
         assert all(r.parent == req.id for r in mine if r is not req)
         assert req.counts == {"audio_s": seconds, "windows": windows, "bucket_rows": rows}
         upload = [r for r in mine if r.name == "diar.upload"][0]
-        assert upload.counts == {"bytes": (rows + 1) * (3072 * 160 - 64 * 1280) * 4}
+        # the real samples alone go up, from the staging buffer, which grows
+        # for the first request and for a larger bucket than any before
+        assert upload.counts == {"bytes": int(seconds * 16000) * 4, "pinned": 0,
+                                 "staging_grown": int(seconds != 20.0)}
         children = [r for r in mine if r is not req]
         assert sum(r.end_ns - r.start_ns for r in children) <= req.end_ns - req.start_ns
         assert all(req.start_ns <= r.start_ns <= r.end_ns <= req.end_ns for r in children)
