@@ -9,13 +9,14 @@ of the JAX package. Phases, one line each; any failure raises and the final
 line is not printed:
 
   1. device: the card's name and power limit (nvidia-smi), the time to
-     build both kernels from `fluidaudio_tpu_torch/csrc/` (one nvcc each, in
-     parallel) and the FLAC decoder, the fastcluster library and the ITN
+     build the three kernel sources from `fluidaudio_tpu_torch/csrc/` (one
+     nvcc each, in parallel) and the FLAC decoder, the fastcluster library and the ITN
      engine from `native/{flac,fastcluster,itn}/` (the host C++ compiler,
      beside them) and the sysinfo shim from `native/sysinfo/sysinfo.c` (the
      host C compiler), and
      what ptxas reports of the attention kernels (the bf16 `wgmma` one and
-     the two f32 ones) and the int8 GEMM (registers, spills, shared memory);
+     the two f32 ones), the int8 GEMM and the Sortformer head's
+     `self_attention_f32` (registers, spills, shared memory);
   2. the rel-pos attention kernel against its plain PyTorch version on the
      card at the v3 shapes (B=4, H=8, T=188, Dh=128, lengths
      [188,100,17,188], bf16; max abs error on valid rows below 0.06), in
@@ -135,7 +136,11 @@ line is not printed:
      Sortformer's shapes (SORTFORMER_V2: Dh 64, H 8; T 384 at B 16, the
      offline windows, and T 6 at B 1024, the streaming chunks), in f32 (tol
      1e-4) and bf16 (tol 0.06), timed beside its bound (the f32 kernels'
-     record, with phase 7's f32 shape, goes into the kernel line); the trained
+     record, with phase 7's f32 shape, goes into the kernel line); the
+     head's `self_attention` kernel at the offline windows (N 384, H 8,
+     Dh 24, B 16 and 128) within 1e-5 of its plain version, timed beside
+     its bound and SDPA's memory-efficient f32 call (`library_ms`, a
+     yardstick the port never calls), into the kernel line; the trained
      `offline` (offline and online managers) and `sortformer` fixtures on
      the card against the CPU (segments and DER equal, gates met, no kernel
      launched); at full width with seeded random weights drawn on the card,
@@ -143,7 +148,9 @@ line is not printed:
      `DiarizerManager()` with each segmentation net, and Sortformer v2
      `process`, `process_offline` and 50 live `process_chunk` calls, each
      path counted (exactly 17 attention launches per Sortformer encoder
-     call, 0 on the pyannote/WeSpeaker paths) and timed with its
+     call, 0 on the pyannote/WeSpeaker paths; 18 `self_attention` launches
+     per offline head call, 36 for `process`'s first call, which captures
+     its step graph, 0 over the live chunks' replays) and timed with its
      PipelineTimings stages; then full width at reduced depth in f32 on the
      card against the CPU (segmentation logits of both nets, ResNet
      embeddings, Sortformer predictions within 1e-4 relative L2, binarised
@@ -402,6 +409,12 @@ def attention_cost(B: int, H: int, T: int, Dh: int, out_bytes: int, in_bytes: in
     return nbytes, 3 * 2 * B * H * T * T * Dh
 
 
+def self_attention_cost(B: int, N: int, H: int, Dh: int) -> tuple[int, int]:
+    """(bytes, operations) of one f32 self_attention call: q, k, v read and
+    out written once; q.k and P.v over every key."""
+    return 4 * 4 * B * N * H * Dh, 4 * B * H * N * N * Dh
+
+
 def int8_cost(M: int, K: int, N: int, with_bias: bool, x_bytes: int, out_bytes: int
               ) -> tuple[int, int]:
     """(bytes, int8 operations) of one int8_matmul_fused call: x, the codes,
@@ -466,6 +479,7 @@ def phase_device(attn, i8) -> tuple[str, str]:
 
     from fluidaudio_tpu_torch.native import cxx, fastcluster, flac, itn, sysinfo
     from fluidaudio_tpu_torch.ops import build
+    from fluidaudio_tpu_torch.ops import self_attention as sa
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -477,7 +491,7 @@ def phase_device(attn, i8) -> tuple[str, str]:
         fc_build = pool.submit(fastcluster.build_library)
         itn_build = pool.submit(itn.build_library)
         sysinfo_build = pool.submit(sysinfo.build_library)
-        built = build.build(attn.KERNEL_SOURCE, i8.KERNEL_SOURCE)
+        built = build.build(attn.KERNEL_SOURCE, i8.KERNEL_SOURCE, sa.KERNEL_SOURCE)
         flac_lib, flac_s = flac_build.result()
         fc_lib, fc_s = fc_build.result()
         itn_lib, itn_s = itn_build.result()
@@ -486,6 +500,7 @@ def phase_device(attn, i8) -> tuple[str, str]:
                               timeout=60, check=True).stdout.splitlines()[0]
     attn_lib = attn.load_library()
     lib = i8.load_library()
+    sa_lib = sa.load_library()
     fastcluster.load_library()
     builds = " | ".join(f"{name} {sec:.2f} s" for name, (sec, _) in built.items())
     print(f"phase 1 device: {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
@@ -508,6 +523,10 @@ def phase_device(attn, i8) -> tuple[str, str]:
     report = ptxas_report(built[i8.KERNEL_SOURCE.name][1], "int8_gemm_dequant")
     print(f"phase 1 int8_gemm_dequant (nvcc -Xptxas -v): {report or 'built before this run'} | "
           f"dynamic shared memory {lib.int8_gemm_dequant_smem_bytes()} B")
+    report = ptxas_report(built[sa.KERNEL_SOURCE.name][1], "self_attention_f32")
+    print(f"phase 1 self_attention_f32 (nvcc -Xptxas -v): {report or 'built before this run'} | "
+          f"dynamic shared memory {sa_lib.self_attention_smem_bytes(24)} B (Dh 24), "
+          f"{sa_lib.self_attention_smem_bytes(64)} B (Dh 64)")
     return smi, builds
 
 
@@ -1492,14 +1511,17 @@ def streaming_full_width(attn, i8, device, smi: str) -> None:
 def counted(attn, i8, fn):
     """Run fn with every kernel count (and the plain attention's call count)
     set to 0 just before and read just after -> (fn's result, counts)."""
+    from fluidaudio_tpu_torch.ops import self_attention as sa
+
     torch.cuda.synchronize()
-    reset_launches(attn.relpos_attention, i8.int8_matmul_fused)
+    reset_launches(attn.relpos_attention, i8.int8_matmul_fused, sa.self_attention)
     attn.relpos_attention_plain.calls = 0
     out = fn()
     torch.cuda.synchronize()
     return out, {"relpos_attention": attn.relpos_attention.launches,
                  "int8_matmul_fused": i8.int8_matmul_fused.launches,
-                 "relpos_attention_plain calls": attn.relpos_attention_plain.calls}
+                 "relpos_attention_plain calls": attn.relpos_attention_plain.calls,
+                 "self_attention": sa.self_attention.launches}
 
 
 def host_ms(fn, runs: int = 5, warmup: int = 1) -> float:
@@ -2453,6 +2475,76 @@ SORTFORMER_ATTN_SHAPES = [(16, 8, 384, 64), (1024, 8, 6, 64)]
 DIAR_SECONDS = 300.0
 SF_LIVE_CHUNKS = 50
 SF_ENCODER_LAYERS = 17  # SORTFORMER_V2: one attention launch per layer per encoder call
+SF_HEAD_LAYERS = 18  # SORTFORMER_V2: one self_attention launch per head layer per head call
+# the head's attention kernel at the offline windows (N 384, H 8, Dh 24, no
+# mask): the smallest and the largest bucket; and at the chunk step (B 1, N
+# 188 + 40 + 6, its region mask)
+SELF_ATTN_SHAPES = [(16, 384, 8, 24, None), (128, 384, 8, 24, None), (1, 234, 8, 24, "stream")]
+SELF_ATTN_TOL = 1e-5
+SELF_ATTN_RECORD: dict = {"shapes": {}}
+
+
+def self_attention_inputs(B: int, N: int, H: int, Dh: int, device, seed: int = 0,
+                          mask: str | None = None, fused: bool = False):
+    """q, k, v [B, N, H, Dh] (with `fused`, strided views of one [B, N, 3 H Dh]
+    projection) and the [B, N] validity: None; `stream`, the chunk step's
+    [cache with holes | FIFO part full | chunk] as a strided view, with its
+    masked queries; `random`."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    if fused:
+        qkv = torch.randn(B, N, 3 * H * Dh, generator=g, device=device)
+        q, k, v = (x.reshape(B, N, H, Dh) for x in qkv.split(H * Dh, dim=-1))
+    else:
+        q, k, v = (torch.randn(B, N, H, Dh, generator=g, device=device) for _ in range(3))
+    valid = None
+    if mask == "stream":
+        valid = torch.zeros(B, 2 * N, dtype=torch.bool, device=device)[:, ::2]
+        valid[:, :188] = torch.rand(B, 188, generator=g, device=device) < 0.7
+        valid[:, 188:208] = True
+        valid[:, N - 6:] = True
+    elif mask == "random":
+        valid = torch.rand(B, N, generator=g, device=device) < 0.6
+    return q, k, v, valid
+
+
+def time_self_attention(device, smi: str) -> list[str]:
+    """The head's f32 attention kernel against its plain version at the
+    offline windows' shapes (no mask, as the offline pass calls it) and the
+    chunk step's (its region mask), timed in turns with it (plain, kernel,
+    kernel, plain) beside its bound at the FP32 rate and, as a yardstick
+    only, PyTorch's memory-efficient f32 `scaled_dot_product_attention` on
+    the same tensors without a mask (`library_ms`; it has no kernel for the
+    chunk step's strided bool mask at N 234; the port never calls it); kept
+    in SELF_ATTN_RECORD. -> timing lines."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention
+
+    from fluidaudio_tpu_torch.ops import self_attention as sa
+
+    lines = []
+    for B, N, H, Dh, mask in SELF_ATTN_SHAPES:
+        q, k, v, valid = self_attention_inputs(B, N, H, Dh, device, seed=B, mask=mask)
+        kernel = lambda: sa.self_attention(q, k, v, valid)
+        plain = lambda: sa.self_attention_plain(q, k, v, valid)
+        err = float((kernel() - plain()).abs().max())
+        check(err <= SELF_ATTN_TOL, f"self_attention B={B} N={N} Dh={Dh} mask {mask}: err {err}")
+        p1, k1, k2, p2 = kernel_ms(plain), kernel_ms(kernel), kernel_ms(kernel), kernel_ms(plain)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            library = kernel_ms(lambda: scaled_dot_product_attention(qt, kt, vt))
+        nbytes, ops = self_attention_cost(B, N, H, Dh)
+        bound_ms, bound_by = bound(nbytes, ops, F32_FLOPS)
+        SELF_ATTN_RECORD["shapes"][f"B={B} N={N} H={H} Dh={Dh} mask={mask}"] = {
+            "ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library, "max_abs_err": err}
+        line = (f"timing [{smi}] self_attention B={B} N={N} H={H} Dh={Dh} mask {mask} f32: kernel "
+                f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}, {ops / 1e9:.2f} GFLOP, peak {F32_FLOPS / 1e12:.0f} TFLOP/s), "
+                f"{bound_ms / min(k1, k2):.1%} of it; library_ms {library:.4f} (SDPA "
+                f"memory-efficient f32, no mask); max abs err {err:.2e} (tol {SELF_ATTN_TOL})")
+        report(line, flush=True)
+        lines.append(line)
+    return lines
 
 
 def sortformer_attention(attn, device, smi: str) -> tuple[float, list[str]]:
@@ -2618,6 +2710,7 @@ def phase_diarizers(attn, i8, device, smi: str) -> tuple[dict, float, list[str]]
     from fluidaudio_tpu_torch.train import tiny_corpus as tc
 
     err, lines = sortformer_attention(attn, device, smi)
+    lines += time_self_attention(device, smi)
     print(f"phase 16 relpos_attention at Sortformer's shapes (Dh 64, H 8; T 384 at B 16 and "
           f"T 6 at B 1024), f32 (tol {SF_F32_TOL}) and bf16 (tol {PARITY_TOL}) against the "
           f"plain version: bf16 max abs err {err:.2e}", flush=True)
@@ -2635,8 +2728,8 @@ def phase_diarizers(attn, i8, device, smi: str) -> tuple[dict, float, list[str]]
     check(c["relpos_attention"] == 0 and c["int8_matmul_fused"] == 0,
           f"diarizer fixtures launched a kernel: {c}")
     print(f"phase 16 trained diarizer fixtures on the card vs the CPU port: {' | '.join(parts)} "
-          f"| launches {c} (the sortformer fixture's Dh-8 encoder takes the plain attention)",
-          flush=True)
+          f"| launches {c} (the sortformer fixture's Dh-8 encoder takes the plain attention, "
+          f"its Dh-8 head the self_attention kernel)", flush=True)
     paths = {"diarizer fixtures (phase 16)": c}
 
     audio = tc.diarizer_mixture(np.random.RandomState(300), DIAR_SECONDS, overlap_prob=0.1)[0]
@@ -2666,11 +2759,16 @@ def phase_diarizers(attn, i8, device, smi: str) -> tuple[dict, float, list[str]]
     torch.cuda.empty_cache()
 
     sf = SortformerDiarizer(checkpoint_dir=empty, device=device)
+    # the head's kernel: 18 per offline head call; `process` captures its
+    # step graph at the first call (an eager warm-up step, then the capture)
+    head_launches = {"process": 2 * SF_HEAD_LAYERS, "process_offline": SF_HEAD_LAYERS}
     for label, fn in (("process", sf.process), ("process_offline", sf.process_offline)):
         result, c = counted(attn, i8, lambda: fn(audio))
         check(c["relpos_attention"] == SF_ENCODER_LAYERS and c["int8_matmul_fused"] == 0
-              and c["relpos_attention_plain calls"] == 0,
-              f"sortformer {label}: launches {c}, want {SF_ENCODER_LAYERS} per encoder call")
+              and c["relpos_attention_plain calls"] == 0
+              and c["self_attention"] == head_launches[label],
+              f"sortformer {label}: launches {c}, want {SF_ENCODER_LAYERS} per encoder call "
+              f"and {head_launches[label]} of self_attention")
         check(all(0 <= s.start_time < s.end_time <= DIAR_SECONDS + 0.5 for s in result.segments),
               f"sortformer {label}: a segment outside the recording")
         key = f"sortformer v2 {label}, {DIAR_SECONDS:.0f} s"
@@ -2690,7 +2788,7 @@ def phase_diarizers(attn, i8, device, smi: str) -> tuple[dict, float, list[str]]
         return np.concatenate(preds)
 
     preds, c = counted(attn, i8, live)
-    check(c["relpos_attention"] == SF_ENCODER_LAYERS * SF_LIVE_CHUNKS
+    check(c["relpos_attention"] == SF_ENCODER_LAYERS * SF_LIVE_CHUNKS and c["self_attention"] == 0
           and np.isfinite(preds).all() and preds.shape == (SF_LIVE_CHUNKS * 6, 4),
           f"sortformer live chunks: launches {c}, preds {preds.shape}")
     key = f"sortformer v2 process_chunk x{SF_LIVE_CHUNKS} (live)"
@@ -4692,6 +4790,15 @@ def main() -> int:
         "max_abs_err": int8_err,
         **int8_t,
         "launches_by_path": {k: v["int8_matmul_fused"] for k, v in paths.items()},
+    }, {
+        "name": "self_attention",
+        "route": "cuda",
+        "source": "fluidaudio_tpu_torch/csrc/self_attention.cu",
+        "replaces": "none: the JAX Sortformer head's einsums and softmax, left to XLA",
+        "launches": paths[f"sortformer v2 process_offline, {DIAR_SECONDS:.0f} s"]["self_attention"],
+        **SELF_ATTN_RECORD,
+        "launches_by_path": {k: v["self_attention"] for k, v in paths.items()
+                             if "self_attention" in v},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -16,9 +16,11 @@ multi_stream}.py`); and CTC keyword spotting with custom-vocabulary
 boosting (`ops/ctc_decode.py`, `asr/keyword_spotter.py`,
 `asr/custom_vocab/`). Entry points run on the GPU unless given
 `device="cpu"`. Its hand-written GPU kernels are the Transformer-XL
-rel-pos attention (`ops/attention.py`, `csrc/relpos_attention.cu`) and the
+rel-pos attention (`ops/attention.py`, `csrc/relpos_attention.cu`), the
 dynamic-quantising int8 matmul (`ops/int8_matmul.py`,
-`csrc/int8_matmul_fused.cu`), built with nvcc at first use (`ops/build.py`).
+`csrc/int8_matmul_fused.cu`) and the Sortformer head's f32 self-attention
+(`ops/self_attention.py`, `csrc/self_attention.cu`), built with nvcc at
+first use (`ops/build.py`).
 """
 
 __version__ = "0.1.0"

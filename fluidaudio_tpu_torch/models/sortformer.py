@@ -11,7 +11,10 @@ pass per 30.72 s window with no state.
 The encoder is the port's `models/conformer.py::ConformerEncoder`, so its
 attention runs through the relpos-attention kernel on the GPU wherever the
 kernel takes the head width (SORTFORMER_V2: Dh 64, one launch per layer);
-the trained fixture (Dh 8) takes the plain version.
+the trained fixture (Dh 8) takes the plain version. The transformer head's
+attention runs through `ops/self_attention.py`'s kernel on the GPU in f32
+(SORTFORMER_V2: Dh 24; the trained fixture: Dh 8), one launch per layer,
+offline with no mask and in the chunk step with the context's [B, N] mask.
 
 The chunk step after the encoder (`streaming_step_from_frames`) is tensor
 code only, with no host sync: the FIFO shift by gathers, and the cache
@@ -21,7 +24,8 @@ to the lower index as `jax.lax.top_k`'s do (the invalid slots all tie at
 batched call and loops the stateful step over them; on the GPU the step is
 a CUDA graph (`StepProgram`), as JAX runs it inside one `lax.scan`.
 The encoder call and the head after it (encoder_proj onward) are the spans
-`encoder` and `sortformer.head` (`utils/profiling.py`).
+`encoder` and `sortformer.head` (`utils/profiling.py`); the offline head's
+span counts `attn_kernel_layers`, the layers that launched the kernel.
 
 Module and parameter names mirror the flax tree (`tf0.q.weight`,
 `encoder.block0...`), so `utils.weights.load_npz` maps the JAX package's npz.
@@ -29,16 +33,19 @@ Module and parameter names mirror the flax tree (`tf0.q.weight`,
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import NamedTuple
 
-import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from fluidaudio_tpu_torch.models.conformer import ConformerConfig, ConformerEncoder
+from fluidaudio_tpu_torch.ops.self_attention import (
+    kernel_takes_head_dim,
+    self_attention,
+    self_attention_plain,
+)
 from fluidaudio_tpu_torch.utils.profiling import span
 
 NUM_SPEAKERS = 4
@@ -145,8 +152,9 @@ def init_state(cfg: SortformerConfig, batch: int, device=None) -> SortformerStat
 class _NemoTfBlock(nn.Module):
     """NeMo TransformerEncoder layer (post-LN): separate q/k/v/out
     projections, then a ReLU feed-forward, each sublayer followed by its
-    layer norm (flax default eps 1e-6) on the residual sum. Masked scores
-    take `finfo(dtype).min`, so a fully masked row is uniform, never NaN."""
+    layer norm (flax default eps 1e-6) on the residual sum. The attention
+    core is `ops.self_attention` (the kernel in f32 on the GPU wherever it
+    takes the head width): masked queries take the uniform row, never NaN."""
 
     def __init__(self, d: int, heads: int, device=None):
         super().__init__()
@@ -158,18 +166,18 @@ class _NemoTfBlock(nn.Module):
         self.ffn_out = nn.Linear(4 * d, d, device=device)
         self.ln2 = nn.LayerNorm(d, eps=1e-6, device=device)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid: torch.Tensor | None) -> torch.Tensor:
+        """x [B, N, d]; `valid` [B, N] bool marks the positions that attend
+        and are attended to (None: all of them)."""
         B, N, d = x.shape
         H = self.heads
         hd = d // H
         q = self.q(x).reshape(B, N, H, hd)
         k = self.k(x).reshape(B, N, H, hd)
         v = self.v(x).reshape(B, N, H, hd)
-        # f32 scores, as JAX's division by a NumPy scalar promotes them
-        scores = torch.einsum("bnhd,bmhd->bhnm", q, k).float() / np.float32(math.sqrt(hd))
-        scores = torch.where(mask, scores, torch.finfo(x.dtype).min)
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        att = torch.einsum("bhnm,bmhd->bnhd", probs, v).reshape(B, N, d)
+        attend = (self_attention if x.dtype == torch.float32 and kernel_takes_head_dim(hd)
+                  else self_attention_plain)
+        att = attend(q, k, v, valid).reshape(B, N, d)
         x = self.ln1(x + self.out(att))
         return self.ln2(x + self.ffn_out(F.relu(self.ffn_in(x))))
 
@@ -203,12 +211,13 @@ class SortformerModel(nn.Module):
         return self.encoder_proj(self._encode(mel))
 
     @torch.no_grad()
-    def predict(self, context: torch.Tensor, context_mask: torch.Tensor) -> torch.Tensor:
-        """context [B, N, d_model] (+bool mask [B, N]) -> sigmoid preds [B, N, 4] f32."""
-        att = context_mask[:, None, None, :] & context_mask[:, None, :, None]
+    def predict(self, context: torch.Tensor,
+                context_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """context [B, N, d_model] (+bool mask [B, N]; None: every position
+        valid) -> sigmoid preds [B, N, 4] f32."""
         x = context
         for i in range(self.cfg.n_transformer_layers):
-            x = getattr(self, f"tf{i}")(x, att)
+            x = getattr(self, f"tf{i}")(x, context_mask)
         logits = self.head(F.relu(self.hidden_fc(x)))
         return torch.sigmoid(logits.float())
 
@@ -216,10 +225,11 @@ class SortformerModel(nn.Module):
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         """Offline fused pass: mel [B, n_mels, T] -> preds [B, T//8, 4]."""
         enc = self._encode(mel)
-        with span("sortformer.head", device=mel.device):
-            frames = self.encoder_proj(enc)
-            B, T, _ = frames.shape
-            return self.predict(frames, torch.ones((B, T), dtype=torch.bool, device=frames.device))
+        with span("sortformer.head", device=mel.device) as head:
+            launched = self_attention.launches
+            preds = self.predict(self.encoder_proj(enc))
+            head.set(attn_kernel_layers=self_attention.launches - launched)
+            return preds
 
 
 def streaming_step(model: SortformerModel, mel_chunk: torch.Tensor, state: SortformerState,

@@ -720,3 +720,145 @@ def test_one_card_mesh_serves_as_unsharded(cuda):
     finally:
         if owned:
             dist.destroy_process_group()
+
+
+# ------------------------------------------- the Sortformer head's attention
+
+SA_TOL = 1e-5  # f32 on both sides: summation order and exp2 against exp
+
+
+def _sa_inputs(B, N, H, Dh, device, seed=0, mask=None, fused=False):
+    """`chip_smoke.self_attention_inputs`: q, k, v and the [B, N] validity."""
+    from chip_smoke import self_attention_inputs
+
+    return self_attention_inputs(B, N, H, Dh, device, seed=seed, mask=mask, fused=fused)
+
+
+@pytest.mark.parametrize("B,N,H,Dh,mask", [
+    (16, 384, 8, 24, None),  # the offline windows, the smallest bucket
+    (128, 384, 8, 24, None),  # the largest bucket
+    (1, 234, 8, 24, "stream"),  # the chunk step: 188 + 40 + 6
+    (3, 46, 4, 8, "random"),  # the trained fixture's widths (d 32, H 4)
+    (2, 100, 2, 16, "random"),
+    (2, 70, 2, 32, None),
+    (2, 65, 3, 40, "random"),
+    (2, 129, 2, 64, "random"),
+])
+def test_self_attention_kernel_matches_plain(cuda, B, N, H, Dh, mask):
+    from fluidaudio_tpu_torch.ops import self_attention as sa
+
+    q, k, v, valid = _sa_inputs(B, N, H, Dh, cuda, seed=N, mask=mask)
+    before = sa.self_attention.launches
+    got = sa.self_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert sa.self_attention.launches == before + 1
+    assert got.is_contiguous() and got.dtype == torch.float32 and got.shape == (B, N, H, Dh)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, sa.self_attention_plain(q, k, v, valid), atol=SA_TOL,
+                               rtol=0)
+    if mask == "stream":  # the masked queries take the mean of v over all N
+        masked = ~valid[0]
+        torch.testing.assert_close(got[0, masked], v[0].mean(0).expand_as(got[0, masked]),
+                                   atol=SA_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("B,N,H,Dh", [(4, 384, 8, 24), (3, 46, 4, 8)])
+def test_self_attention_on_projection_views(cuda, B, N, H, Dh):
+    """Strided views of one fused [B, N, 3 H Dh] projection, as the reshaped
+    Linear outputs are views: the same result as on contiguous copies."""
+    from fluidaudio_tpu_torch.ops import self_attention as sa
+
+    q, k, v, _ = _sa_inputs(B, N, H, Dh, cuda, seed=1, fused=True)
+    assert not q.is_contiguous()
+    got = sa.self_attention(q, k, v)
+    torch.testing.assert_close(got, sa.self_attention_plain(q, k, v), atol=SA_TOL, rtol=0)
+    torch.testing.assert_close(got, sa.self_attention(*(x.contiguous() for x in (q, k, v))),
+                               atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("bad", ["float64", "bfloat16", "dh12", "dh72", "misaligned",
+                                 "valid_on_cpu"])
+def test_self_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda, bad):
+    from fluidaudio_tpu_torch.ops import self_attention as sa
+
+    q, k, v, _ = _sa_inputs(2, 16, 4, 24, cuda)
+    valid = None
+    if bad in ("float64", "bfloat16"):
+        q, k, v = (x.to(getattr(torch, bad)) for x in (q, k, v))
+    elif bad in ("dh12", "dh72"):
+        q = k = v = torch.randn(2, 16, 2, int(bad[2:]), device=cuda)
+    elif bad == "misaligned":  # rows of 98 floats
+        q = torch.randn(2, 16, 98, device=cuda)[..., :96].reshape(2, 16, 4, 24)
+    elif bad == "valid_on_cpu":
+        valid = torch.ones(2, 16, dtype=torch.bool)
+    before = sa.self_attention.launches
+    with pytest.raises(ValueError):
+        sa.self_attention(q, k, v, valid)
+    assert sa.self_attention.launches == before
+
+
+def _head_model(cuda, seed=0):
+    from fluidaudio_tpu_torch.models.sortformer import SORTFORMER_V2, SortformerModel
+    from fluidaudio_tpu_torch.models.zoo import random_init_
+
+    model = SortformerModel(SORTFORMER_V2, device=cuda).eval()
+    random_init_(model, torch.Generator(device=cuda).manual_seed(seed))
+    return model
+
+
+def test_sortformer_v2_forward_kernel_against_plain(cuda, monkeypatch):
+    """`SortformerModel.forward` at SORTFORMER_V2 width on two offline
+    windows: 18 launches, one per head layer, and the plain head's
+    predictions within SA_TOL; the head allocates no [B, 8, N, N] scores."""
+    from fluidaudio_tpu_torch.models import sortformer as msf
+    from fluidaudio_tpu_torch.ops import self_attention as sa
+
+    model = _head_model(cuda)
+    mel = torch.randn(2, 128, 3072, generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = sa.self_attention.launches
+    got = model(mel)
+    torch.cuda.synchronize()
+    assert sa.self_attention.launches == before + 18
+    ctx = model.encode_frames(mel)
+    B, N, _ = ctx.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model.predict(ctx)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < B * 8 * N * N * 4
+    monkeypatch.setattr(msf, "kernel_takes_head_dim", lambda hd: False)  # the plain head
+    before = sa.self_attention.launches
+    want = model(mel)
+    assert sa.self_attention.launches == before
+    torch.testing.assert_close(got, want, atol=SA_TOL, rtol=0)
+
+
+def test_sortformer_v2_step_graph_against_eager(cuda):
+    """The chunk step at SORTFORMER_V2 width: 18 launches per eager step
+    (the [B, N] context mask); the `StepProgram` CUDA graph's replays give
+    the eager steps' predictions and state."""
+    from fluidaudio_tpu_torch.models import sortformer as msf
+    from fluidaudio_tpu_torch.ops import self_attention as sa
+
+    model = _head_model(cuda, seed=2)
+    cfg = model.cfg
+    frames = torch.randn(12, cfg.chunk_frames, cfg.d_model,
+                         generator=torch.Generator().manual_seed(3)).to(cuda)
+    state = msf.init_state(cfg, 1, device=cuda)
+    before = sa.self_attention.launches
+    eager, s_eager = [], state
+    for i in range(frames.shape[0]):
+        p, s_eager = msf.streaming_step_from_frames(model, frames[i:i + 1], s_eager, cfg)
+        eager.append(p[0])
+    torch.cuda.synchronize()
+    assert sa.self_attention.launches == before + 18 * frames.shape[0]
+    program = msf.StepProgram(model, cfg)
+    got, s_graph = program.scan(frames, state, frames.shape[0])
+    assert program.graph is not None
+    torch.testing.assert_close(got, torch.stack(eager), atol=SA_TOL, rtol=0)
+    for g, w in zip(s_graph, s_eager):
+        if g.dtype == torch.bool or not g.is_floating_point():
+            assert torch.equal(g, w)
+        else:
+            torch.testing.assert_close(g, w, atol=SA_TOL, rtol=0)
